@@ -7,14 +7,17 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
 Phases, each fatal on failure:
 
-1. build: compile every CUDA kernel of the descriptor forward from
-   ``patchaugnet_tpu_torch/csrc`` with nvcc (sm_90a) into ``build/`` and
-   print the ptxas register/spill report;
+1. build: compile every CUDA kernel from ``patchaugnet_tpu_torch/csrc``
+   with nvcc (sm_90a) into ``build/``, one nvcc per source, all at once,
+   and print the ptxas register/spill report;
 2. kernels: at the shapes of the forward at B=32 (the three SA levels of
-   FPS and kNN, the three FP levels of top-3 extraction), hold each
-   kernel against its plain torch version on the card (indices exactly
-   equal, values within 1e-6), plus an all-equal cloud and a tied matrix,
-   and time kernel, plain version and a PyTorch yardstick;
+   FPS and kNN, the three FP levels of top-3 extraction) and of the
+   auction EMD at (4, 4096) (the price-fused top-2 on the full
+   (4, 4096, 4096) base and on the (4, 256, 4096) active-set tail, the
+   two-level top-2 of a 8192-wide row chunk), hold each kernel against
+   its plain torch version on the card (indices exactly equal, values
+   within 1e-6, K3-K6 exactly), plus an all-equal cloud and tied
+   matrices, and time kernel, plain version and a PyTorch yardstick;
 3. serving: the full-width PatchAugNet (``configs.PATCH_AUG_NET``, seeded
    random weights) answers 4 requests of 32 clouds of 4096 points through
    ``serving.build_forward_fn``; every kernel's launch count must show it
@@ -22,7 +25,15 @@ Phases, each fatal on failure:
    run through the plain versions on the card must give the same
    provenance indices and descriptors within 1e-5; then descriptors/s at
    B=32 and B=100 and the peak device memory;
-4. report: one ``{"kernels": [...]}`` line, the card's name and power
+4. EMD: ``losses.emd_loss`` forward and backward on two (4, 4096, 3)
+   clouds at the reference eps=0.02, iters=1024; K6 must have launched
+   once per auction iteration plus once for the force-assign pass, the
+   loss and gradient must be finite, and the assignment must equal the
+   plain-kernel run on the card; then the opt-in ``unass_floor`` and
+   ``eps_schedule`` modes beside it, and a short row-chunked auction at
+   (1, 8192) that runs K4 (``profile_torch.py --emd`` breaks the exact
+   call down by device kernel);
+5. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -45,6 +56,10 @@ THROUGHPUT_BATCHES = ((32, 10), (100, 4))   # (batch size, timed batches)
 PEAK_BYTES_PER_S = 3.35e12                 # H100 SXM device memory (data sheet)
 PEAK_F32_OPS_PER_S = 67e12                 # H100 SXM f32 outside the tensor cores
 CARD = "unknown card"
+DESCRIPTOR_KERNELS = ("fps", "knn", "topk_extract")   # K1-K3, 3 launches per forward
+EMD_B, EMD_N, EMD_EPS, EMD_ITERS = 4, 4096, 0.02, 1024  # losses/pointnetvlad_loss.py:205-221
+EMD_TAIL_ROWS = 256                                     # the active-set width R at n=4096
+CHUNKED_N, CHUNKED_ITERS = 8192, 20                     # a row-chunked auction, K4 on its path
 
 
 def say(*parts):
@@ -87,8 +102,9 @@ def bound(nbytes, nops):
 
 
 class KernelRecord:
-    def __init__(self, name, module, source, replaces):
+    def __init__(self, name, module, source, replaces, counter="launches"):
         self.name, self.module, self.source, self.replaces = name, module, source, replaces
+        self.counter = counter   # the wrapper's launch count in ``module``
         self.cases = []          # (ms, plain_ms, library_ms, bound_ms, bound_by)
         self.max_abs_err = 0.0
 
@@ -105,13 +121,24 @@ class KernelRecord:
         }
 
 
+def reset_counts(mods, records):
+    for rec in records:
+        setattr(mods[rec.module], rec.counter, 0)
+
+
+def read_counts(mods, records):
+    return {rec.name: getattr(mods[rec.module], rec.counter) for rec in records}
+
+
 @contextlib.contextmanager
 def plain_kernels(mods):
     """Route every kernel wrapper to its plain torch version (for the
     on-card reference run); restores the kernels on exit."""
     swaps = [(mods["fps"], "_farthest_point_sample_cuda", "_farthest_point_sample_torch"),
              (mods["knn"], "_knn_cuda", "_knn_torch"),
-             (mods["topk"], "_topk_extract_cuda", "_topk_extract_torch")]
+             (mods["topk"], "_topk_extract_cuda", "_topk_extract_torch"),
+             (mods["topk"], "_topk_extract_price_cuda", "_topk_extract_price_torch"),
+             (mods["topk"], "_topk_extract_chunked_cuda", "_topk_extract_chunked_torch")]
     saved = [getattr(mod, kernel) for mod, kernel, _ in swaps]
     for mod, kernel, plain in swaps:
         setattr(mod, kernel, getattr(mod, plain))
@@ -218,6 +245,80 @@ def phase_kernels(torch, ops, mods, dev):
     return [k1, k2, k3]
 
 
+def check_equal(torch, what, got, want):
+    """Indices and values exactly equal (K3-K6 round nothing differently
+    from their plain versions)."""
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        err = (got[1] - want[1]).abs().max().item()
+        raise AssertionError(f"{what}: kernel differs from the plain version (value err {err})")
+
+
+def phase_emd_kernels(torch, ops, mods, dev):
+    """K4-K6 at the auction's shapes, against their plain versions."""
+    topk = mods["topk"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x1 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
+    x2 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
+    neg_base = torch.sqrt(ops.pairwise_sqdist(x1, x2)) - 3.0     # as the fused sweep forms it
+    price = torch.rand(EMD_B, EMD_N, generator=gen, device=dev) * 0.05
+    tail_ids = torch.randperm(EMD_N, generator=gen, device=dev)[:EMD_TAIL_ROWS].sort().values
+    tail = neg_base[:, tail_ids]                                   # the active-set gather
+
+    k6 = KernelRecord("topk_extract_price", "topk", "patchaugnet_tpu_torch/csrc/topk.cu",
+                      "patchaugnet_tpu/ops/pallas/knn.py:286", counter="price_launches")
+    for label, base in (("full sweep", neg_base), ("active-set tail", tail)):
+        b, m, n = base.shape
+        check_equal(torch, f"K6 {label}", ops.topk_extract_price(base, price, 2),
+                    topk._topk_extract_price_torch(base, price, 2))
+        ms = time_ms(torch, lambda: ops.topk_extract_price(base, price, 2), 20)
+        plain = time_ms(torch, lambda: topk._topk_extract_price_torch(base, price, 2), 3)
+        summed = base + price[:, None, :]
+        lib = time_ms(torch, lambda: torch.topk(summed, 2, dim=-1, largest=False), 10)
+        add_ms = time_ms(torch, lambda: base + price[:, None, :], 10)
+        del summed
+        b_ms, b_by = bound(b * m * n * 4 + b * n * 4 + b * m * 2 * 8, 2 * b * m * n)
+        k6.cases.append((ms, plain, lib, b_ms, b_by))
+        measured(f"K6 topk_extract_price {label} (b,m,n,k)=({b},{m},{n},2)",
+                 f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.topk on the sum {lib:.4f} ms "
+                 f"(+{add_ms:.4f} ms to form it), bound {b_ms:.4f} ms ({b_by}), indices and values equal")
+    for k in (3, 8, 32):
+        check_equal(torch, f"K6 generic k={k}", ops.topk_extract_price(tail, price, k),
+                    topk._topk_extract_price_torch(tail, price, k))
+    ms8 = time_ms(torch, lambda: ops.topk_extract_price(tail, price, 8), 20)
+    measured(f"K6 generic k=8 on the tail shape ({EMD_B},{EMD_TAIL_ROWS},{EMD_N})", f"kernel {ms8:.4f} ms")
+    tied_base = torch.randint(0, 4, (EMD_B, EMD_TAIL_ROWS, EMD_N), generator=gen, device=dev).float()
+    tied_price = torch.randint(0, 3, (EMD_B, EMD_N), generator=gen, device=dev).float() * 0.5
+    for k in (2, 20):
+        check_equal(torch, f"K6 tied k={k}", ops.topk_extract_price(tied_base, tied_price, k),
+                    topk._topk_extract_price_torch(tied_base, tied_price, k))
+    say("K6 topk_extract_price: generic k=3/8/32 and tied base and price (k=2, 20) equal the plain version")
+
+    k4 = KernelRecord("topk_extract_chunked", "topk", "patchaugnet_tpu_torch/csrc/topk.cu",
+                      "patchaugnet_tpu/ops/pallas/knn.py:330", counter="chunked_launches")
+    c1 = torch.rand(1, CHUNKED_N, 3, generator=gen, device=dev)
+    c2 = torch.rand(1, CHUNKED_N, 3, generator=gen, device=dev)
+    cprice = torch.rand(1, CHUNKED_N, generator=gen, device=dev) * 0.05
+    # the negated value of one 4096-row chunk of the row-chunked sweep
+    chunk = -(3.0 - torch.sqrt(ops.pairwise_sqdist(c1[:, :4096], c2)) - cprice[:, None, :])
+    got = ops.topk_extract_chunked(chunk, 2)
+    check_equal(torch, "K4 vs flat K3", got, ops.topk_extract(chunk, 2))
+    check_equal(torch, "K4 vs plain", got, topk._topk_extract_torch(chunk, 2))
+    ms = time_ms(torch, lambda: ops.topk_extract_chunked(chunk, 2), 20)
+    plain = time_ms(torch, lambda: topk._topk_extract_chunked_torch(chunk, 2, 64), 3)
+    flat = time_ms(torch, lambda: ops.topk_extract(chunk, 2), 20)
+    lib = time_ms(torch, lambda: torch.topk(chunk, 2, dim=-1, largest=False), 10)
+    b_ms, b_by = bound(chunk.numel() * 4 + 4096 * 2 * 8, chunk.numel())
+    k4.cases.append((ms, plain, lib, b_ms, b_by))
+    measured(f"K4 topk_extract_chunked (b,m,n,k)=(1,4096,{CHUNKED_N},2), 64 chunks",
+             f"two K3 kernel launches {ms:.4f} ms, flat K3 {flat:.4f} ms, plain {plain:.4f} ms, torch.topk {lib:.4f} ms, "
+             f"bound {b_ms:.4f} ms ({b_by}), equal to flat K3 and to the plain version")
+    del chunk
+
+    del neg_base, tail
+    return [k4, k6]
+
+
 def phase_serving(torch, mods, records, dev):
     from patchaugnet_tpu_torch import configs, serving
     from patchaugnet_tpu_torch.models import get_model
@@ -231,18 +332,18 @@ def phase_serving(torch, mods, records, dev):
     forward(requests[0])                                  # warm-up
     torch.cuda.synchronize()
 
-    for mod in mods.values():
-        mod.launches = 0
+    reset_counts(mods, records)
     t0 = time.perf_counter()
     descs = [forward(x) for x in requests]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {rec.name: mods[rec.module].launches for rec in records}
+    counts = read_counts(mods, records)
     measured(f"serving {REQUESTS} requests of {B} x {N_POINTS} points",
              f"{wall * 1e3:.2f} ms, kernel launches {counts}")
-    for name, count in counts.items():
-        if count != 3 * REQUESTS:
-            raise AssertionError(f"{name}: {count} launches, expected 3 per forward x {REQUESTS}")
+    for rec in records:
+        want = 3 * REQUESTS if rec.name in DESCRIPTOR_KERNELS else 0
+        if counts[rec.name] != want:
+            raise AssertionError(f"{rec.name}: {counts[rec.name]} launches in serving, expected {want}")
 
     for d in descs:
         if d.shape != (B, 256) or not torch.isfinite(d).all():
@@ -254,9 +355,9 @@ def phase_serving(torch, mods, records, dev):
     with torch.inference_mode():
         ref = model(requests[0])
         with plain_kernels(mods):
-            before = {k: m.launches for k, m in mods.items()}
+            before = read_counts(mods, records)
             plain = model(requests[0])
-            if {k: m.launches for k, m in mods.items()} != before:
+            if read_counts(mods, records) != before:
                 raise AssertionError("the plain run launched a kernel")
     for name in ("center_idx_origin", "sample_idx_origin"):
         for level, (a, b) in enumerate(zip(getattr(ref, name), getattr(plain, name))):
@@ -289,6 +390,100 @@ def phase_serving(torch, mods, records, dev):
     return counts
 
 
+def check_launches(counts, want, what):
+    for name, count in counts.items():
+        if count != want.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {count} times, expected {want.get(name, 0)}")
+
+
+def phase_emd(torch, ops, mods, records, dev):
+    """The reconstruction-loss path: ``emd_loss`` at the reference call site."""
+    from patchaugnet_tpu_torch import losses
+
+    emd = mods["emd"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    pc1 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
+    pc2 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
+    ops.auction_emd(pc1, pc2, EMD_EPS, 8)                   # warm-up
+    torch.cuda.synchronize()
+
+    x = pc1.clone().requires_grad_()
+    reset_counts(mods, records)
+    t0 = time.perf_counter()
+    loss = losses.emd_loss(x, pc2, EMD_EPS, EMD_ITERS)
+    loss.backward()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts(mods, records)
+    iters, unass = emd.iterations, emd.unassigned
+    check_launches(counts, {"topk_extract_price": iters + 1}, "emd_loss")
+    if not (torch.isfinite(loss) and torch.isfinite(x.grad).all()) or x.grad.shape != pc1.shape:
+        raise AssertionError("emd_loss: non-finite loss or gradient")
+    # every launch at most as long as a full-width sweep (phase 2's time;
+    # the active-set tail's are shorter)
+    k6_full_ms = next(r for r in records if r.name == "topk_extract_price").cases[0][0]
+    k6_share = counts["topk_extract_price"] * k6_full_ms / call_ms
+    measured(f"emd_loss forward+backward ({EMD_B},{EMD_N},3) eps={EMD_EPS} iters={EMD_ITERS}",
+             f"{call_ms:.3f} ms per call, {iters} iterations ({call_ms / iters:.4f} ms per iteration), "
+             f"{unass} rows unassigned at exit, loss {loss.item():.6f}, K6 launches {counts['topk_extract_price']}, "
+             f"K6 at most {k6_share:.1%} of the call")
+
+    dist, assignment = ops.auction_emd(pc1, pc2, EMD_EPS, EMD_ITERS)
+    with plain_kernels(mods):
+        before = read_counts(mods, records)
+        plain_dist, plain_assignment = ops.auction_emd(pc1, pc2, EMD_EPS, EMD_ITERS)
+        if read_counts(mods, records) != before:
+            raise AssertionError("the plain auction launched a kernel")
+    if not (torch.equal(assignment, plain_assignment) and torch.equal(dist, plain_dist)):
+        raise AssertionError("auction: the kernel path's assignment differs from the plain path's")
+    unique = min(int(a.unique().numel()) for a in assignment)
+    say(f"EMD: assignment and distances equal to the plain-kernel run on the card; "
+        f"min unique assignments per cloud {unique}/{EMD_N}, mean sqdist {dist.mean().item():.6f}")
+
+    for label, kw in (("unass_floor=41", {"unass_floor": 41}),
+                      ("eps_schedule=(10, 1)", {"eps_schedule": (10.0, 1.0)})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist, assignment = ops.auction_emd(pc1, pc2, EMD_EPS, EMD_ITERS, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        unique = min(int(a.unique().numel()) for a in assignment)
+        measured(f"auction_emd forward, {label}",
+                 f"{ms:.3f} ms, {emd.iterations} iterations, {emd.unassigned} unassigned at exit, "
+                 f"min unique {unique}/{EMD_N}, mean sqdist {dist.mean().item():.6f}")
+
+    # a row-chunked auction (two 4096-row chunks of 8192 columns): each
+    # chunk's top-2 is too wide for the TPU's flat tile, so it runs K4
+    c1 = torch.rand(1, CHUNKED_N, 3, generator=gen, device=dev)
+    c2 = torch.rand(1, CHUNKED_N, 3, generator=gen, device=dev)
+    saved = os.environ.get("PCR_EMD_SWEEP")
+    os.environ["PCR_EMD_SWEEP"] = "chunked"
+    try:
+        reset_counts(mods, records)
+        t0 = time.perf_counter()
+        dist, assignment = ops.auction_emd(c1, c2, EMD_EPS, CHUNKED_ITERS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        chunked_counts = read_counts(mods, records)
+        sweeps = emd.iterations + 1
+        # two K4 calls per sweep (one per 4096-row chunk), two K3 kernel
+        # launches each, all counted under K4
+        check_launches(chunked_counts, {"topk_extract_chunked": 4 * sweeps}, "row-chunked auction")
+        with plain_kernels(mods):
+            plain_dist, plain_assignment = ops.auction_emd(c1, c2, EMD_EPS, CHUNKED_ITERS)
+    finally:
+        if saved is None:
+            del os.environ["PCR_EMD_SWEEP"]
+        else:
+            os.environ["PCR_EMD_SWEEP"] = saved
+    if not (torch.equal(assignment, plain_assignment) and torch.equal(dist, plain_dist)):
+        raise AssertionError("row-chunked auction: the kernel path differs from the plain path")
+    measured(f"row-chunked auction (1,{CHUNKED_N},3), {CHUNKED_ITERS} iterations",
+             f"{ms:.3f} ms, K4 kernel launches {chunked_counts['topk_extract_chunked']}, "
+             f"assignment equal to the plain-kernel run")
+    return counts, chunked_counts
+
+
 def main():
     global CARD
     import torch
@@ -301,7 +496,7 @@ def main():
     from patchaugnet_tpu_torch.ops import cuda
 
     mods = {name: importlib.import_module(f"patchaugnet_tpu_torch.ops.{name}")
-            for name in ("fps", "knn", "topk")}
+            for name in ("fps", "knn", "topk", "emd")}
     smi = card_line()
     CARD = smi
     say(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
@@ -309,10 +504,21 @@ def main():
 
     dev = serving.resolve_device("cuda")
     phase_build(cuda)
-    records = phase_kernels(torch, ops, mods, dev)
-    counts = phase_serving(torch, mods, records, dev)
+    records = phase_kernels(torch, ops, mods, dev) + phase_emd_kernels(torch, ops, mods, dev)
+    serving_counts = phase_serving(torch, mods, records, dev)
+    emd_counts, chunked_counts = phase_emd(torch, ops, mods, records, dev)
 
-    say(json.dumps({"kernels": [rec.as_json(counts[rec.name]) for rec in records]}))
+    # each kernel's launches on its paths: K1-K3 serving, K6 emd_loss, K4
+    # the row-chunked auction (each run counts only its own kernels)
+    launches = {name: serving_counts[name] + emd_counts[name] + chunked_counts[name]
+                for name in serving_counts}
+    # K5 (``topk_extract_pair``) is K3's function by K3's kernel, on no path
+    # (the JAX package dispatches it nowhere): its line repeats K3's times
+    k3 = next(r for r in records if r.name == "topk_extract")
+    k5 = KernelRecord("topk_extract_pair", "topk", k3.source, "patchaugnet_tpu/ops/pallas/knn.py:177")
+    k5.cases, k5.max_abs_err = k3.cases, k3.max_abs_err
+    launches[k5.name] = 0
+    say(json.dumps({"kernels": [rec.as_json(launches[rec.name]) for rec in records + [k5]]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

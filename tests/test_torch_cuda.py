@@ -10,7 +10,8 @@ kernels with nvcc into ``build/``.
 
 Indices must be exactly equal; values agree to 1e-6 (the kernels and the
 plain versions round every distance the same way, so they are expected
-to agree bit for bit).
+to agree bit for bit). The top-k kernels (K3, and K4-K6 built on the same
+row scan) and the auction EMD that runs them are held to exact equality.
 """
 import importlib
 
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from patchaugnet_tpu_torch import ops
+from patchaugnet_tpu_torch.losses import emd_loss
 
 pytestmark = pytest.mark.cuda
 
@@ -110,6 +112,84 @@ def test_topk_ties(device, rng):
     gi, gv = ops.topk_extract(d, 20)
     ri, rv = topk_ops._topk_extract_torch(d, 20)
     assert torch.equal(gi, ri) and torch.equal(gv, rv)
+
+
+def _tied_price_inputs(rng, b, m, n, device):
+    base = (rng.rand(b, m, n).astype(np.float32) - 0.5) * 4
+    base[:, :, ::5] = base[:, :, 1:2]
+    price = rng.rand(b, n).astype(np.float32) * 2
+    price[:, n // 3:n // 2] = price[:, :1]
+    return torch.from_numpy(base).to(device), torch.from_numpy(price).to(device)
+
+
+@pytest.mark.parametrize("b,m,n,k", [(4, 256, 4096, 2), (4, 256, 4096, 3), (2, 512, 1000, 2),
+                                     (1, 40, 77, 8), (2, 64, 512, 20)])
+def test_price_matches_plain(device, rng, b, m, n, k):
+    """K6: the auction's k=2, the generic k, tied base columns and prices."""
+    base, price = _tied_price_inputs(rng, b, m, n, device)
+    before = topk_ops.price_launches
+    gi, gv = ops.topk_extract_price(base, price, k)
+    torch.cuda.synchronize()
+    assert topk_ops.price_launches == before + 1
+    ri, rv = topk_ops._topk_extract_price_torch(base, price, k)
+    assert torch.equal(gi, ri) and torch.equal(gv, rv)
+
+
+@pytest.mark.parametrize("k", [2, 9])
+def test_chunked_matches_flat(device, rng, k):
+    """K4 at n=8192 against flat K3 and the plain version, with ties; its
+    two K3 kernel launches count under K4 alone."""
+    d = rng.rand(1, 256, 8192).astype(np.float32)
+    d[:, :, ::13] = d[:, :, 0:1]
+    d = torch.from_numpy(d).to(device)
+    before = topk_ops.chunked_launches, topk_ops.launches
+    gi, gv = ops.topk_extract_chunked(d, k)
+    torch.cuda.synchronize()
+    assert (topk_ops.chunked_launches, topk_ops.launches) == (before[0] + 2, before[1])
+    fi, fv = ops.topk_extract(d, k)
+    ri, rv = topk_ops._topk_extract_torch(d, k)
+    assert torch.equal(gi, fi) and torch.equal(gv, fv)
+    assert torch.equal(gi, ri) and torch.equal(gv, rv)
+
+
+def test_pair_runs_topk_kernel(device, rng):
+    d = torch.from_numpy(rng.rand(2, 64, 200).astype(np.float32)).to(device)
+    assert ops.topk_extract_pair is ops.topk_extract
+    for k in (6, 7):
+        before = topk_ops.launches
+        gi, gv = ops.topk_extract_pair(d, k)
+        assert topk_ops.launches == before + 1
+        ri, rv = topk_ops._topk_extract_torch(d, k)
+        assert torch.equal(gi, ri) and torch.equal(gv, rv)
+
+
+@pytest.mark.parametrize("sweep", ["auto", "chunked"])
+def test_auction_matches_plain_kernels(device, rng, monkeypatch, sweep):
+    """The auction on the kernels against the same call on their plain
+    versions, on the card: the price-fused sweep with its active-set tail
+    (K6 once per iteration and once for the force-assign pass), and the
+    dense sweep on K3."""
+    emd = importlib.import_module("patchaugnet_tpu_torch.ops.emd")
+    monkeypatch.setenv("PCR_EMD_SWEEP", sweep)
+    x1, x2 = _cloud(rng, 2, 1024, device), _cloud(rng, 2, 1024, device)
+    before = topk_ops.price_launches, topk_ops.launches
+    dist, assignment = ops.auction_emd(x1, x2, 0.02, 200)
+    sweeps = emd.iterations + 1
+    launched = topk_ops.price_launches - before[0], topk_ops.launches - before[1]
+    assert launched == ((sweeps, 0) if sweep == "auto" else (0, sweeps))
+    for kernel, plain in (("_topk_extract_price_cuda", "_topk_extract_price_torch"),
+                          ("_topk_extract_cuda", "_topk_extract_torch")):
+        monkeypatch.setattr(topk_ops, kernel, getattr(topk_ops, plain))
+    plain_dist, plain_assignment = ops.auction_emd(x1, x2, 0.02, 200)
+    assert torch.equal(assignment, plain_assignment) and torch.equal(dist, plain_dist)
+
+
+def test_emd_loss_gradient_on_card(device, rng):
+    x1 = _cloud(rng, 2, 512, device).requires_grad_()
+    x2 = _cloud(rng, 2, 512, device)
+    loss = emd_loss(x1, x2, 0.02, 100)
+    loss.backward()
+    assert torch.isfinite(loss) and torch.isfinite(x1.grad).all() and x1.grad.abs().sum() > 0
 
 
 def test_wide_knn_goes_through_topk_kernel(device, rng):
