@@ -11,20 +11,22 @@ Phases, each fatal on failure:
    with nvcc (sm_90a) into ``build/``, one nvcc per source, all at once,
    and print the ptxas register/spill report;
 2. kernels: at the shapes of the forward at B=32 (the three SA levels of
-   FPS and kNN, the three FP levels of top-3 extraction) and of the
-   auction EMD at (4, 4096) (the price-fused top-2 on the full
-   (4, 4096, 4096) base and on the (4, 256, 4096) active-set tail, the
-   two-level top-2 of a 8192-wide row chunk), hold each kernel against
-   its plain torch version on the card (indices exactly equal, values
-   within 1e-6, K3-K6 exactly), plus an all-equal cloud and tied
-   matrices, and time kernel, plain version and a PyTorch yardstick;
+   FPS and kNN at k=20, the three FP levels' 3-NN on the kNN kernel, and
+   the top-3 extraction of the FP levels' distance matrices, the route
+   the 3-NN took before) and of the auction EMD at (4, 4096) (the
+   price-fused top-2 on the full (4, 4096, 4096) base and on the
+   (4, 256, 4096) active-set tail, the two-level top-2 of a 8192-wide row
+   chunk), hold each kernel against its plain torch version on the card
+   (indices and values exactly equal, K1 indices), on random, tied and
+   all-equal inputs, hold the 3-NN against the matrix-and-K3 route bit
+   for bit, and time kernel, plain version and a PyTorch yardstick;
 3. serving: the full-width PatchAugNet (``configs.PATCH_AUG_NET``, seeded
    random weights) answers 4 requests of 32 clouds of 4096 points through
-   ``serving.build_forward_fn``; every kernel's launch count must show it
-   ran, the descriptors must be finite and unit-norm, and the same model
-   run through the plain versions on the card must give the same
-   provenance indices and descriptors within 1e-5; then descriptors/s at
-   B=32 and B=100 and the peak device memory;
+   ``serving.build_forward_fn``; the launch counts must be 3 FPS and 6
+   kNN launches per forward and no other, the descriptors must be finite
+   and unit-norm, and the same model run through the plain versions on
+   the card must give the same provenance indices and descriptors within
+   1e-5; then descriptors/s at B=32 and B=100 and the peak device memory;
 4. EMD: ``losses.emd_loss`` forward and backward on two (4, 4096, 3)
    clouds at the reference eps=0.02, iters=1024; K6 must have launched
    once per auction iteration plus once for the force-assign pass, the
@@ -56,7 +58,9 @@ THROUGHPUT_BATCHES = ((32, 10), (100, 4))   # (batch size, timed batches)
 PEAK_BYTES_PER_S = 3.35e12                 # H100 SXM device memory (data sheet)
 PEAK_F32_OPS_PER_S = 67e12                 # H100 SXM f32 outside the tensor cores
 CARD = "unknown card"
-DESCRIPTOR_KERNELS = ("fps", "knn", "topk_extract")   # K1-K3, 3 launches per forward
+# launches per forward: K1 at the three SA levels, K2 at the three SA and
+# the three FP levels (the 3-NN), K3 nowhere
+FORWARD_LAUNCHES = {"fps": 3, "knn": 6}
 EMD_B, EMD_N, EMD_EPS, EMD_ITERS = 4, 4096, 0.02, 1024  # losses/pointnetvlad_loss.py:205-221
 EMD_TAIL_ROWS = 256                                     # the active-set width R at n=4096
 CHUNKED_N, CHUNKED_ITERS = 8192, 20                     # a row-chunked auction, K4 on its path
@@ -99,6 +103,54 @@ def bound(nbytes, nops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fps_bound(b, n, m):
+    """K1: the clouds read, the picks written; ten operations per point and step."""
+    return bound(b * n * 12 + b * m * 4, b * (m - 1) * n * 10)
+
+
+def knn_bound(b, n, m, k):
+    """K2: candidates and queries read, k (index, d2) pairs written; ten operations per pair."""
+    return bound(b * (n + m) * 12 + b * m * k * 8, b * m * n * 10)
+
+
+def topk_bound(b, m, n, k):
+    """K3: the matrix read, k (index, value) pairs written; a compare per element."""
+    return bound(b * m * n * 4 + b * m * k * 8, b * m * n)
+
+
+def level_clouds(torch, ops, fps, gen, batch=B):
+    """The forward's point sets at ``batch``: random (batch, 4096, 3) clouds
+    drawn from ``gen``, then the SA levels' FPS chain of 1024, 128 and 16
+    centres (``fps`` is K1's wrapper or its plain version)."""
+    x = [torch.rand(batch, N_POINTS, 3, generator=gen, device=gen.device)]
+    for npoint in (1024, 128, 16):
+        x.append(ops.gather(x[-1], fps(x[-1], npoint)))
+    return x
+
+
+def knn_cases(x):
+    """The forward's six kNN launches as (label, candidates, queries, k):
+    the SA levels' kNN (k=20, queries = the level's centres) and the FP
+    levels' 3-NN (queries = the finer level's points, candidates = the
+    coarser level's)."""
+    return ([(f"SA{lv}", x[lv], x[lv + 1], 20) for lv in range(3)]
+            + [(f"FP{lv}", x[lv + 1], x[lv], 3) for lv in range(3)])
+
+
+def matrix_knn(ops, pts, qry, k):
+    """The route the FP 3-NN took before K2 took it: form the (b, m, n)
+    distance matrix, then K3."""
+    return ops.topk_extract(ops.pairwise_sqdist(qry, pts), k)
+
+
+def knn_yardsticks(torch, ops, pts, qry, k):
+    """ms of ``torch.topk`` on the formed distance matrix, and of forming it."""
+    dist = ops.pairwise_sqdist(qry, pts)
+    lib = time_ms(torch, lambda: torch.topk(dist, k, dim=-1, largest=False), 10)
+    form = time_ms(torch, lambda: ops.pairwise_sqdist(qry, pts), 10)
+    return lib, form
 
 
 class KernelRecord:
@@ -154,7 +206,7 @@ def phase_build(cuda):
     logs = cuda.build()
     for name, log in logs.items():
         for line in log.splitlines():
-            if "ptxas" in line and ("Used" in line or "spill" in line or "Compiling" in line):
+            if ("ptxas" in line and ("Used" in line or "Compiling" in line)) or "spill" in line:
                 say(f"  {name}: {line.strip()}")
     say(f"build: {len(logs)} libraries ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc sm_90a, into {cuda.BUILD_DIR})")
@@ -162,9 +214,7 @@ def phase_build(cuda):
 
 def phase_kernels(torch, ops, mods, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
-    x = [torch.rand(B, N_POINTS, 3, generator=gen, device=dev)]
-    for npoint in (1024, 128, 16):                       # the SA levels' FPS chain
-        x.append(ops.gather(x[-1], mods["fps"]._farthest_point_sample_torch(x[-1], npoint)))
+    x = level_clouds(torch, ops, mods["fps"]._farthest_point_sample_torch, gen)
 
     k1 = KernelRecord("fps", "fps", "patchaugnet_tpu_torch/csrc/fps.cu", "patchaugnet_tpu/ops/pallas/fps.py:64")
     for level in range(3):
@@ -177,7 +227,7 @@ def phase_kernels(torch, ops, mods, dev):
             raise AssertionError(f"fps SA{level}: kernel indices differ from the plain version")
         ms = time_ms(torch, lambda: ops.farthest_point_sample(pts, m), 20)
         plain = time_ms(torch, lambda: mods["fps"]._farthest_point_sample_torch(pts, m), 2)
-        b_ms, b_by = bound(B * n * 12 + B * m * 4, B * (m - 1) * n * 10)
+        b_ms, b_by = fps_bound(B, n, m)
         k1.cases.append((ms, plain, None, b_ms, b_by))
         measured(f"K1 fps SA{level} (b,n,m)=({B},{n},{m})",
                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), indices equal")
@@ -187,38 +237,46 @@ def phase_kernels(torch, ops, mods, dev):
     say("K1 fps: all-equal cloud picks index 0 throughout")
 
     k2 = KernelRecord("knn", "knn", "patchaugnet_tpu_torch/csrc/knn.cu", "patchaugnet_tpu/ops/pallas/knn.py:96")
-    for level in range(3):
-        pts, qry, k = x[level], x[level + 1], 20
+    knn = mods["knn"]
+    for label, pts, qry, k in knn_cases(x):
         n, m = pts.shape[1], qry.shape[1]
-        gi, gd = ops.knn(pts, qry, k)
-        ri, rd = mods["knn"]._knn_torch(pts, qry, k)
-        torch.cuda.synchronize()
-        err = (gd - rd).abs().max().item()
-        if not torch.equal(gi, ri) or err > 1e-6:
-            raise AssertionError(f"knn SA{level}: kernel differs from the plain version (d2 err {err})")
-        k2.max_abs_err = max(k2.max_abs_err, err)
-        dist = ops.pairwise_sqdist(qry, pts)
+        tied = (pts * 8).floor() / 8                           # coarse grid: many equal distances
+        tied[:, 1::7] = tied[:, :1]                            # and duplicated points
+        for what, cand in (("random", pts), ("tied", tied)):
+            check_equal(torch, f"knn {label} {what} cloud", ops.knn(cand, qry, k),
+                        knn._knn_torch(cand, qry, k))
         ms = time_ms(torch, lambda: ops.knn(pts, qry, k), 20)
-        plain = time_ms(torch, lambda: mods["knn"]._knn_torch(pts, qry, k), 3)
-        lib = time_ms(torch, lambda: torch.topk(dist, k, dim=-1, largest=False), 10)
-        pair_ms = time_ms(torch, lambda: ops.pairwise_sqdist(qry, pts), 10)
-        del dist
-        b_ms, b_by = bound(B * (n + m) * 12 + B * m * k * 8, B * m * n * 10)
+        plain = time_ms(torch, lambda: knn._knn_torch(pts, qry, k), 3)
+        lib, pair_ms = knn_yardsticks(torch, ops, pts, qry, k)
+        b_ms, b_by = knn_bound(B, n, m, k)
         k2.cases.append((ms, plain, lib, b_ms, b_by))
-        measured(f"K2 knn SA{level} (b,n,m,k)=({B},{n},{m},{k})",
-                 f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.topk on the distance matrix "
-                 f"{lib:.4f} ms (+{pair_ms:.4f} ms to form it), bound {b_ms:.4f} ms ({b_by}), "
-                 f"indices equal, d2 max abs err {err:.3g}")
-    gi, _ = ops.knn(same, same[:, :64], 20)
-    if not torch.equal(gi, torch.arange(20, dtype=torch.int32, device=dev).expand(B, 64, 20)):
-        raise AssertionError("knn: an all-equal cloud must return indices 0..k-1")
-    say("K2 knn: all-equal cloud returns indices 0..k-1")
+        lanes = knn.lanes_for(B, n, m, k, knn._sm_count(dev.index or 0))
+        text = (f"kernel {ms:.4f} ms ({lanes} lanes per query), plain {plain:.4f} ms, torch.topk on the "
+                f"distance matrix {lib:.4f} ms (+{pair_ms:.4f} ms to form it)")
+        if label.startswith("FP"):
+            old = time_ms(torch, lambda: matrix_knn(ops, pts, qry, k), 20)
+            for what, cand in (("random", pts), ("tied", tied), ("all-equal", torch.ones_like(pts))):
+                got = ops.three_nn(qry, cand)
+                ref = matrix_knn(ops, cand, qry, k)
+                check_equal(torch, f"three_nn {label} {what} cloud", (got[1], got[0]),
+                            (ref[0], torch.sqrt(ref[1])))
+            text += f", the matrix and K3 {old:.4f} ms"
+        measured(f"K2 knn {label} (b,n,m,k)=({B},{n},{m},{k})",
+                 f"{text}, bound {b_ms:.4f} ms ({b_by}), indices and d2 equal (random and tied clouds)")
+        if label.startswith("FP"):
+            say(f"K2 three_nn {label}: equal to the matrix and K3 bit for bit on random, tied and "
+                f"all-equal clouds")
+    for k in (3, 20):
+        gi, gd = ops.knn(same, same[:, :64], k)
+        if not torch.equal(gi, torch.arange(k, dtype=torch.int32, device=dev).expand(B, 64, k)) or gd.any():
+            raise AssertionError(f"knn: an all-equal cloud must return indices 0..k-1 at k={k}")
+    say("K2 knn: all-equal cloud returns indices 0..k-1 and d2 0 at k=3 and k=20")
 
     k3 = KernelRecord("topk_extract", "topk", "patchaugnet_tpu_torch/csrc/topk.cu",
                       "patchaugnet_tpu/ops/pallas/knn.py:201")
-    for level in range(3):
+    for level in range(3):                                 # off the forward since K2 took the FP 3-NN
         unknown, known, k = x[level], x[level + 1], 3
-        dist = ops.pairwise_sqdist(unknown, known)          # (B, m, n) as three_nn forms it
+        dist = ops.pairwise_sqdist(unknown, known)          # (B, m, n) as three_nn formed it
         m, n = dist.shape[1], dist.shape[2]
         gi, gv = ops.topk_extract(dist, k)
         ri, rv = mods["topk"]._topk_extract_torch(dist, k)
@@ -231,7 +289,7 @@ def phase_kernels(torch, ops, mods, dev):
         plain = time_ms(torch, lambda: mods["topk"]._topk_extract_torch(dist, k), 3)
         lib = time_ms(torch, lambda: torch.topk(dist, k, dim=-1, largest=False), 10)
         del dist
-        b_ms, b_by = bound(B * m * n * 4 + B * m * k * 8, B * m * n)
+        b_ms, b_by = topk_bound(B, m, n, k)
         k3.cases.append((ms, plain, lib, b_ms, b_by))
         measured(f"K3 topk_extract FP{level} (b,m,n,k)=({B},{m},{n},{k})",
                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.topk {lib:.4f} ms, "
@@ -341,7 +399,7 @@ def phase_serving(torch, mods, records, dev):
     measured(f"serving {REQUESTS} requests of {B} x {N_POINTS} points",
              f"{wall * 1e3:.2f} ms, kernel launches {counts}")
     for rec in records:
-        want = 3 * REQUESTS if rec.name in DESCRIPTOR_KERNELS else 0
+        want = FORWARD_LAUNCHES.get(rec.name, 0) * REQUESTS
         if counts[rec.name] != want:
             raise AssertionError(f"{rec.name}: {counts[rec.name]} launches in serving, expected {want}")
 

@@ -147,6 +147,44 @@ int threads_for(int n, int ppt) {
     return ((per + 31) / 32) * 32;
 }
 
+// Points per thread for a cloud of n points; 0 takes the scratch row.
+int ppt_for(int n) {
+    if (n <= kThreads) return 1;
+    if (n <= 2 * kThreads) return 2;
+    if (n <= 4 * kThreads) return 4;
+    return n <= kMaxPPT * kThreads ? kMaxPPT : 0;
+}
+
+// K1's latency floor, a measurement (profile_torch.py --kernels), never
+// launched by the port. Each of K1's m - 1 picks waits on the one before,
+// and a pick needs at least a shuffle tree over each warp, one block barrier
+// to publish the warps' winners, and a shuffle tree over those winners. This
+// kernel runs exactly that, m - 1 times, on K1's grid and block for the same
+// cloud: one shuffle and one max per round (an arg-max moves its index in a
+// second, independent shuffle), the winners double-buffered so that one
+// barrier per step is enough, and no loads, distances or stores. Its time is
+// a lower bound on K1's at that shape.
+template <int R>   // rounds of the tree over the warps' winners
+__global__ void __launch_bounds__(kThreads) step_floor(float* out, int steps) {
+    __shared__ float s_v[2][32];
+    const unsigned full = 0xffffffffu;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    float v = static_cast<float>(threadIdx.x);
+    for (int s = 0; s < steps; ++s) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(full, v, off));
+        if (lane == 0) s_v[s & 1][warp] = v;
+        __syncthreads();
+        float w = lane < nwarps ? s_v[s & 1][lane] : -pan::pos_inf();
+#pragma unroll
+        for (int off = (1 << R) >> 1; off > 0; off >>= 1) w = fmaxf(w, __shfl_xor_sync(full, w, off));
+        v = w - static_cast<float>(threadIdx.x);   // the next step depends on this pick
+    }
+    if (threadIdx.x == 0) out[blockIdx.x] = v;
+}
+
 }  // namespace
 
 // xyz: (b, n, 3) f32 contiguous; idx: (b, m) i32; mind: (b, n) f32 scratch,
@@ -156,16 +194,33 @@ extern "C" int pan_fps(const void* xyz, void* mind, void* idx, int b, int n, int
     const float* x = static_cast<const float*>(xyz);
     int* out = static_cast<int*>(idx);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (n <= kThreads) {
-        fps_registers<1><<<b, threads_for(n, 1), 0, st>>>(x, out, n, m);
-    } else if (n <= 2 * kThreads) {
-        fps_registers<2><<<b, threads_for(n, 2), 0, st>>>(x, out, n, m);
-    } else if (n <= 4 * kThreads) {
-        fps_registers<4><<<b, threads_for(n, 4), 0, st>>>(x, out, n, m);
-    } else if (n <= kMaxPPT * kThreads) {
-        fps_registers<kMaxPPT><<<b, threads_for(n, kMaxPPT), 0, st>>>(x, out, n, m);
-    } else {
-        fps_scratch<<<b, kThreads, 0, st>>>(x, static_cast<float*>(mind), out, n, m);
+    const int ppt = ppt_for(n);
+    const int threads = ppt ? threads_for(n, ppt) : kThreads;
+    switch (ppt) {
+        case 1: fps_registers<1><<<b, threads, 0, st>>>(x, out, n, m); break;
+        case 2: fps_registers<2><<<b, threads, 0, st>>>(x, out, n, m); break;
+        case 4: fps_registers<4><<<b, threads, 0, st>>>(x, out, n, m); break;
+        case kMaxPPT: fps_registers<kMaxPPT><<<b, threads, 0, st>>>(x, out, n, m); break;
+        default: fps_scratch<<<b, kThreads, 0, st>>>(x, static_cast<float*>(mind), out, n, m);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// out: (b,) f32. The floor of pan_fps on b clouds of n points, m picks.
+extern "C" int pan_fps_step_floor(void* out, int b, int n, int m, void* stream) {
+    float* o = static_cast<float*>(out);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int ppt = ppt_for(n);
+    const int threads = ppt ? threads_for(n, ppt) : kThreads;
+    int rounds = 0;   // ceil(log2(warps per block))
+    while ((32 << rounds) < threads) ++rounds;
+    switch (rounds) {
+        case 0: step_floor<0><<<b, threads, 0, st>>>(o, m - 1); break;
+        case 1: step_floor<1><<<b, threads, 0, st>>>(o, m - 1); break;
+        case 2: step_floor<2><<<b, threads, 0, st>>>(o, m - 1); break;
+        case 3: step_floor<3><<<b, threads, 0, st>>>(o, m - 1); break;
+        case 4: step_floor<4><<<b, threads, 0, st>>>(o, m - 1); break;
+        default: step_floor<5><<<b, threads, 0, st>>>(o, m - 1);
     }
     return static_cast<int>(cudaGetLastError());
 }

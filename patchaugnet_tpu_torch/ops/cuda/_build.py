@@ -41,8 +41,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # library name -> {C entry point: argument types, the stream included}
 LIBRARIES: Dict[str, Dict[str, list]] = {
-    "fps": {"pan_fps": [_P, _P, _P, _I, _I, _I, _P]},
-    "knn": {"pan_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "fps": {"pan_fps": [_P, _P, _P, _I, _I, _I, _P],
+            "pan_fps_step_floor": [_P, _I, _I, _I, _P]},
+    "knn": {"pan_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "topk": {"pan_topk_extract": [_P, _P, _P, _L, _I, _I, _P],
              "pan_topk_extract_price": [_P, _P, _P, _P, _L, _I, _I, _I, _P]},
 }

@@ -13,9 +13,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from . import contracts
-from .knn import dilated_knn
-from .pairwise import pairwise_sqdist
-from .topk import topk_extract
+from .knn import dilated_knn, knn
 
 
 def gather(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -47,11 +45,14 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor) -> Tuple[torch.Tensor, 
     """Exact 3 nearest neighbours of ``unknown`` within ``known``.
 
     Returns ``(dist, idx)``, both ``(b, n, 3)``: euclidean distances and
-    int32 indices, ascending, the lowest index on ties. The squared
-    distance matrix is extracted by :func:`ops.topk.topk_extract` (kernel
-    K3 on the card).
+    int32 indices, ascending, the lowest index on ties. This is
+    :func:`ops.knn.knn` at k=3: on the card the kNN kernel (K2) forms each
+    distance as ``pairwise_sqdist`` does and never writes the ``(b, n, m)``
+    matrix; on the CPU it is the top-3 extraction of that matrix. (The JAX
+    package extracts from the formed matrix on every device; the indices
+    and squared distances are the same bits.)
     """
-    idx, d2 = topk_extract(pairwise_sqdist(unknown, known), 3)
+    idx, d2 = knn(known, unknown, 3)
     return torch.sqrt(d2), idx
 
 

@@ -9,12 +9,14 @@ path of ``knn_pallas``: ``pairwise_sqdist`` and the top-k extraction
 (kernel K3 on the card).
 
 The kernel (``csrc/knn.cu``) is bound by f32 operations on the H100 (a
-distance and a compare per pair against a few MB of input). One thread
-takes a query, candidates stream through shared memory, and each thread
-keeps a sorted k-list in registers.
+distance and a compare per pair against a few MB of input). G lanes take
+a query (:func:`lanes_for` picks G per shape), candidates stream through
+shared memory, and the G lanes keep one sorted list of the query's best
+pairs between them, whose k-th entry rejects candidates for all of them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -26,6 +28,36 @@ from .topk import MAX_K, _topk_extract_torch, topk_extract
 
 # kernel launches so far; chip_smoke.py resets and reads it
 launches = 0
+
+# the kernel's lanes per query (G), and the targets of :func:`lanes_for`
+LANES = (4, 8, 16, 32)
+_MAX_SLOTS = 3         # list slots per lane, ceil(k / G), at the most (csrc/knn.cu's kMaxSlots)
+_WARPS_PER_SM = 16     # resident warps per SM that hide the scan's latency
+_MIN_SCAN = 2          # candidates per lane at the least
+_MAX_GRID_Y = 65535    # the launch's batch axis
+
+
+def lanes_for(b: int, n: int, m: int, k: int, sms: int) -> int:
+    """Lanes per query for a ``(b, n, m, k)`` launch on a card of ``sms``
+    SMs: the fewest that keep each lane's share of the list at
+    ``_MAX_SLOTS`` slots or fewer (an insertion costs every lane its
+    slots), doubled while the card holds fewer than ``_WARPS_PER_SM``
+    warps per SM and each lane keeps ``_MIN_SCAN`` candidates or more.
+
+    On an H100 this picks 8 lanes at k=20 over 4096 candidates and 4 at
+    k=3 over 1024 (the first SA and FP levels at B=32), and more lanes at
+    the small levels, where 4 leave most of the card idle (PERF.md).
+    """
+    g = next(g for g in LANES if -(-k // g) <= _MAX_SLOTS)
+    while (g < LANES[-1] and b * m * g < 32 * _WARPS_PER_SM * sms
+           and n >= _MIN_SCAN * 2 * g):
+        g *= 2
+    return g
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def knn(
@@ -60,21 +92,34 @@ def knn(
     return topk_extract(pairwise_sqdist(new_xyz, xyz), k)
 
 
-def _knn_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _knn_cuda(
+    xyz: torch.Tensor, new_xyz: torch.Tensor, k: int, lanes: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel; ``lanes`` overrides :func:`lanes_for` (tests and tuning)."""
     global launches
     if k > MAX_K:
         raise ValueError(f"k={k}: the CUDA kNN kernel takes k <= {MAX_K}")
     if new_xyz.shape[-1] != 3:
         raise ValueError(f"new_xyz: expected (B, M, 3), got {tuple(new_xyz.shape)}")
-    xyz = xyz.to(torch.float32).contiguous()
-    new_xyz = new_xyz.to(device=xyz.device, dtype=torch.float32).contiguous()
+    if new_xyz.device != xyz.device:
+        raise ValueError(f"new_xyz on {new_xyz.device}, xyz on {xyz.device}")
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
+    if b > _MAX_GRID_Y or n >= 2**31 // 3:
+        raise ValueError(f"xyz {tuple(xyz.shape)}: the CUDA kNN kernel takes b <= {_MAX_GRID_Y} "
+                         f"and n < 2**31 / 3")
+    if lanes is None:
+        lanes = lanes_for(b, n, m, k, _sm_count(xyz.device.index or 0))
+    elif lanes not in LANES or -(-k // lanes) > _MAX_SLOTS:
+        raise ValueError(f"lanes={lanes}: the CUDA kNN kernel takes {LANES} with at most "
+                         f"{_MAX_SLOTS} list slots per lane, ceil(k / lanes), at k={k}")
+    xyz = xyz.to(torch.float32).contiguous()
+    new_xyz = new_xyz.to(torch.float32).contiguous()
     idx = torch.empty((b, m, k), dtype=torch.int32, device=xyz.device)
     d2 = torch.empty((b, m, k), dtype=torch.float32, device=xyz.device)
     if b * m == 0:
         return idx, d2
-    launch("knn", "pan_knn", xyz.device, xyz, new_xyz, idx, d2, b, n, m, k)
+    launch("knn", "pan_knn", xyz.device, xyz, new_xyz, idx, d2, b, n, m, k, lanes)
     launches += 1
     return idx, d2
 

@@ -4,10 +4,10 @@
   (``patchaugnet_tpu/ops/pallas/knn.py``, ``_extract_kernel`` +
   ``_extract_sweeps``): for a ``(b, m, n)`` f32 matrix, the k smallest
   values of every row in ascending order with their column indices, the
-  lowest index among equal values. On the descriptor path it is the 3-NN of
-  every feature-propagation level (``ops.grouping.three_nn``) and the split
-  kNN path for points wider than 3; on the EMD path the top-2 of the dense
-  and row-chunked auction sweeps.
+  lowest index among equal values. It is the split kNN path for points
+  wider than 3, and on the EMD path the top-2 of the dense and row-chunked
+  auction sweeps. (The feature-propagation levels' 3-NN,
+  ``ops.grouping.three_nn``, runs on the kNN kernel and forms no matrix.)
 - :func:`topk_extract_price` (K6) replaces ``topk_extract_price_pallas``
   (``_extract_price_kernel``, ``_extract_price2_kernel``): the same
   extraction over ``neg_base + price[:, None, :]`` with the add done in

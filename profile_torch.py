@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of the port's PatchAugNet forward, or of its auction
-EMD, goes on the card.
+"""Where the time of the port's PatchAugNet forward, of its kernels, or of
+its auction EMD, goes on the card.
 
-    python3 profile_torch.py [--batch 32] [--iters 5] [--table PATH]
+    python3 profile_torch.py [--batch 32] [--iters 5] [--table PATH] [--root DIR]
+    python3 profile_torch.py --kernels [--lanes] [--batch 32] [--root DIR]
     python3 profile_torch.py --emd [--table PATH]
 
 Serves the full-width PatchAugNet (``configs.PATCH_AUG_NET``, seeded
@@ -11,9 +12,24 @@ forward:
 
 - each top-level stage (``sa0..sa2``, ``fp2..fp0``, ``aggregation``) in
   device time, bracketed by CUDA events from forward hooks;
-- the host wall time and the device's busy share over the same window;
+- the host wall time, descriptors/s and the peak device memory, and the
+  device's busy share over the same window;
 - the top operators and kernels by self device time from
   ``torch.profiler`` (``--table`` writes the full table to a file).
+
+With ``--kernels`` it times each kernel of the forward at the shapes the
+forward gives it, ``chip_smoke.py``'s cases with its bounds and
+yardsticks (K1 at the three SA levels; K2 at the three SA levels at k=20
+and the three FP levels' 3-NN at k=3; K3 on the FP levels' distance
+matrices, the 3-NN's former route): the mean per call of back-to-back
+wrapper calls (CUDA events, the wrapper's host cost included) beside the
+device time per launch from the profiler's device rows. Beside K1 it
+times K1's dependent-step floor, a kernel that runs only the barrier and
+the two shuffle trees each of K1's m - 1 picks needs, on K1's grid.
+``--lanes`` adds K2 at every lanes-per-query count the kernel takes at
+that k, the data behind ``ops.knn.lanes_for``. ``--root`` imports ``patchaugnet_tpu_torch`` from
+another checkout (a parent commit unpacked with ``git archive``), so one
+call on one card can time both.
 
 With ``--emd`` it runs ``ops.auction_emd`` instead, at the reference
 call site of ``emd_loss`` (two (4, 4096, 3) clouds, eps 0.02, 1024
@@ -26,12 +42,16 @@ Every number is printed beside the card's name and power limit. Needs a
 CUDA device; imports nothing of JAX.
 """
 import argparse
+import importlib
 import os
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+import chip_smoke as smoke  # noqa: E402
+from chip_smoke import time_ms  # noqa: E402
 N_POINTS = 4096
 STAGES = ("sa0", "sa1", "sa2", "fp2", "fp1", "fp0", "aggregation")
 EMD_B, EMD_N, EMD_EPS, EMD_ITERS = 4, 4096, 0.02, 1024  # losses/pointnetvlad_loss.py:205-221
@@ -49,6 +69,86 @@ def write_table(path, card, rows, key):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(f"{card}\n" + rows.table(sort_by=key, row_limit=60, max_name_column_width=100))
+
+
+def device_ms(torch, fn, reps, match=None):
+    """(device ms per launch, launches recorded per call) from the
+    profiler's device rows over ``reps`` calls of ``fn``: the kernels whose
+    name holds ``match``, or every kernel the call ran. Per launch is over
+    the launches the profiler recorded, so a lost event shows as fewer
+    launches per call, not as a shorter launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    key, _, kernels = device_kernels(prof)
+    hits = [r for r in kernels if match is None or match in r.key]
+    count = sum(r.count for r in hits)
+    return sum(getattr(r, key) for r in hits) / 1e3 / max(count, 1), count / reps
+
+
+def profile_kernels(torch, card, dev, batch, lanes_sweep):
+    """K1-K3 at the forward's shapes: ``chip_smoke.py``'s cases, bounds and
+    yardsticks, with the profiler's device time per launch beside each."""
+    from patchaugnet_tpu_torch import ops
+    from patchaugnet_tpu_torch.ops.cuda import _build as cuda
+
+    knn = importlib.import_module("patchaugnet_tpu_torch.ops.knn")
+
+    def report(label, fn, match, b_ms, b_by, extra=""):
+        ms = time_ms(torch, fn, 20)
+        dev_ms, per_call = device_ms(torch, fn, 20, match)
+        print(f"[{card}] {label}: {ms:.4f} ms per call, device {dev_ms:.4f} ms per launch "
+              f"({per_call:g} launches per call), bound {b_ms:.4f} ms ({b_by}){extra}", flush=True)
+        return dev_ms
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = smoke.level_clouds(torch, ops, ops.farthest_point_sample, gen, batch)
+    # a parent's package may predate the floor's entry point
+    has_floor = "pan_fps_step_floor" in cuda.LIBRARIES["fps"]
+    out = torch.empty(batch, device=dev)
+    for lv in range(3):
+        pts, m = x[lv], x[lv + 1].shape[1]
+        n = pts.shape[1]
+        fps_ms = report(f"K1 fps SA{lv} (b,n,m)=({batch},{n},{m})", lambda: ops.farthest_point_sample(pts, m),
+                        "fps_", *smoke.fps_bound(batch, n, m))
+        if has_floor:
+            floor_ms = device_ms(torch, lambda: cuda.launch("fps", "pan_fps_step_floor", dev, out, batch, n, m),
+                                 20, "step_floor")[0]
+            print(f"[{card}] K1 fps SA{lv} dependent-step floor (m - 1 = {m - 1} steps of one barrier and "
+                  f"two shuffle trees, timed alone): device {floor_ms:.4f} ms, "
+                  f"{floor_ms / (m - 1) * 1e3:.4f} us per step; K1 {fps_ms / floor_ms:.2f}x the floor",
+                  flush=True)
+    for label, pts, qry, k in smoke.knn_cases(x):
+        n, m = pts.shape[1], qry.shape[1]
+        lib, form = smoke.knn_yardsticks(torch, ops, pts, qry, k)
+        extra = f"; torch.topk on the distance matrix {lib:.4f} ms (+{form:.4f} ms to form it)"
+        if label.startswith("FP"):
+            old = lambda: smoke.matrix_knn(ops, pts, qry, k)   # noqa: E731
+            old_dev, old_kernels = device_ms(torch, old, 20)
+            extra += (f"; the matrix and K3 {time_ms(torch, old, 20):.4f} ms per call, device "
+                      f"{old_dev * old_kernels:.4f} ms in {old_kernels:g} kernels")
+        shape = f"(b,n,m,k)=({batch},{n},{m},{k})"
+        if hasattr(knn, "lanes_for"):                  # a parent's one-thread kernel has none
+            shape += f", {knn.lanes_for(batch, n, m, k, knn._sm_count(dev.index or 0))} lanes"
+        b_ms, b_by = smoke.knn_bound(batch, n, m, k)
+        report(f"K2 knn {label} {shape}", lambda: ops.knn(pts, qry, k), "knn_kernel", b_ms, b_by, extra)
+        if lanes_sweep:
+            for g in knn.LANES:
+                if -(-k // g) <= knn._MAX_SLOTS:
+                    report(f"K2 knn {label} lanes={g}", lambda: knn._knn_cuda(pts, qry, k, lanes=g),
+                           "knn_kernel", b_ms, b_by)
+    for lv in range(3):
+        dist = ops.pairwise_sqdist(x[lv], x[lv + 1])
+        m, n = dist.shape[1], dist.shape[2]
+        report(f"K3 topk_extract FP{lv} (b,m,n,k)=({batch},{m},{n},3)", lambda: ops.topk_extract(dist, 3),
+               "topk_kernel", *smoke.topk_bound(batch, m, n, 3))
+        del dist
+    return 0
 
 
 def profile_emd(torch, card, dev, table):
@@ -103,6 +203,10 @@ def main():
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--table", help="write the profiler's operator table to this file")
     parser.add_argument("--emd", action="store_true", help="profile the auction EMD instead")
+    parser.add_argument("--kernels", action="store_true",
+                        help="time each kernel of the forward at its shapes instead")
+    parser.add_argument("--lanes", action="store_true", help="with --kernels: K2 at every lanes count")
+    parser.add_argument("--root", default=ROOT, help="checkout to import patchaugnet_tpu_torch from")
     args = parser.parse_args()
 
     import torch
@@ -110,7 +214,7 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     from patchaugnet_tpu_torch import configs, serving
     from patchaugnet_tpu_torch.models import get_model
     from patchaugnet_tpu_torch.nn import seeded_init_
@@ -120,8 +224,11 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     dev = serving.resolve_device("cuda")
+    print(f"[{card}] patchaugnet_tpu_torch from {os.path.dirname(serving.__file__)}", flush=True)
     if args.emd:
         return profile_emd(torch, card, dev, args.table)
+    if args.kernels:
+        return profile_kernels(torch, card, dev, args.batch, args.lanes)
     model = seeded_init_(get_model("patch_aug_net", configs.PATCH_AUG_NET),
                          torch.Generator().manual_seed(0))
     forward = serving.build_forward_fn(model, device=dev)
@@ -130,6 +237,15 @@ def main():
     for _ in range(2):
         forward(clouds)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        forward(clouds)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[{card}] B={args.batch}: {wall_ms:.3f} ms per forward (host wall), "
+          f"{args.batch / wall_ms * 1e3:.1f} descriptors/s, peak memory {peak:.3f} GiB", flush=True)
 
     # stage times: CUDA events around each top-level submodule
     marks = {name: [] for name in STAGES}
@@ -152,17 +268,13 @@ def main():
     for name in STAGES:
         sub = getattr(model, name)
         handles += [sub.register_forward_pre_hook(pre(name)), sub.register_forward_hook(post(name))]
-    t0 = time.perf_counter()
     for _ in range(args.iters):
         forward(clouds)
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
     for h in handles:
         h.remove()
     stage_ms = {name: sum(a.elapsed_time(b) for a, b in marks[name]) / args.iters for name in STAGES}
     total = sum(stage_ms.values())
-    print(f"[{card}] B={args.batch}: {wall_ms:.3f} ms per forward (host wall), "
-          f"{args.batch / wall_ms * 1e3:.1f} descriptors/s", flush=True)
     for name in STAGES:
         print(f"[{card}] stage {name}: {stage_ms[name]:.3f} ms ({stage_ms[name] / total:.1%} of "
               f"{total:.3f} ms in stages)", flush=True)

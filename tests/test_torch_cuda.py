@@ -83,6 +83,61 @@ def test_knn_matches_plain(device, rng, b, n, m, k):
     torch.testing.assert_close(gd, rd, atol=1e-6, rtol=0)
 
 
+# (lanes, k): every lanes count the rule can pick at k = 1, 3, 20, 32 (at
+# most 3 list slots per lane, ceil(k / lanes)), then 4 lanes with 2 and 3
+# slots and 8 lanes with 2, the instantiations those leave out
+_LANES_K = [(g, k) for k in (1, 3, 20, 32) for g in knn_ops.LANES if -(-k // g) <= knn_ops._MAX_SLOTS]
+_LANES_K += [(4, 7), (4, 11), (8, 15)]
+
+
+@pytest.mark.parametrize("lanes,k", _LANES_K)
+@pytest.mark.parametrize("n,m", [(4099, 70), (333, 45), (37, 9)])
+def test_knn_lanes_match_plain(device, rng, lanes, k, n, m):
+    """Every (lanes, slots per lane) instantiation the lanes rule can pick,
+    at k = 1, 3, 20, 32 where the rule allows it: n past one 2048-candidate
+    tile and not a multiple of it or of the lanes, a cloud whose rows are
+    not 16-byte aligned (n = 333, 37), and n < lanes * k; indices and d2
+    exactly equal."""
+    k = min(k, n)
+    x, q = _cloud(rng, 2, n, device), _cloud(rng, 2, m, device)
+    gi, gd = knn_ops._knn_cuda(x, q, k, lanes=lanes)
+    ri, rd = knn_ops._knn_torch(x, q, k)
+    assert torch.equal(gi, ri) and torch.equal(gd, rd)
+    x, q = _cloud(rng, 2, n, device, ties=True), _cloud(rng, 2, m, device, ties=True)
+    gi, gd = knn_ops._knn_cuda(x, q, k, lanes=lanes)
+    ri, rd = knn_ops._knn_torch(x, q, k)
+    assert torch.equal(gi, ri) and torch.equal(gd, rd)
+    gi, gd = knn_ops._knn_cuda(torch.ones(2, n, 3, device=device), torch.ones(2, m, 3, device=device),
+                               k, lanes=lanes)
+    assert torch.equal(gi.cpu(), torch.arange(k, dtype=torch.int32).expand(2, m, k))
+    assert not gd.any()
+
+
+@pytest.mark.parametrize("b,n,m", [(32, 1024, 4096), (32, 128, 1024), (32, 16, 128)])
+def test_three_nn_runs_knn_kernel(device, rng, b, n, m):
+    """The FP levels' 3-NN: one kNN launch and no top-k launch, the indices
+    and distances of the formed matrix's top-3 extraction bit for bit."""
+    known, unknown = _cloud(rng, b, n, device), _cloud(rng, b, m, device)
+    before = knn_ops.launches, topk_ops.launches
+    dist, idx = ops.three_nn(unknown, known)
+    torch.cuda.synchronize()
+    assert (knn_ops.launches, topk_ops.launches) == (before[0] + 1, before[1])
+    ri, rd = ops.topk_extract(ops.pairwise_sqdist(unknown, known), 3)
+    assert torch.equal(idx, ri) and torch.equal(dist, torch.sqrt(rd))
+
+
+def test_knn_rejects_what_the_kernel_does_not_take(device):
+    x = torch.rand(1, 64, 3, device=device)
+    with pytest.raises(ValueError):
+        knn_ops._knn_cuda(x, x, 3, lanes=2)
+    with pytest.raises(ValueError):                     # 5 list slots per lane
+        knn_ops._knn_cuda(x, x, 20, lanes=4)
+    with pytest.raises(ValueError):
+        knn_ops._knn_cuda(x, x, 33)
+    with pytest.raises(ValueError):
+        knn_ops._knn_cuda(x, x.cpu(), 3)
+
+
 def test_knn_all_equal_and_ties(device, rng):
     gi, gd = ops.knn(torch.ones(2, 40, 3, device=device), torch.ones(2, 8, 3, device=device), 6)
     assert torch.equal(gi.cpu(), torch.arange(6, dtype=torch.int32).expand(2, 8, 6))

@@ -7,6 +7,8 @@ exactly equal; squared distances agree to 1e-6 (the JAX side may contract
 a multiply-add where the port rounds twice); features and descriptors to
 the tolerance stated at each test.
 """
+import importlib
+
 import numpy as np
 import pytest
 import jax
@@ -142,6 +144,19 @@ class TestKNN:
         perm = torch.randperm(8, generator=torch.Generator().manual_seed(3))
         np.testing.assert_array_equal(shuffled.numpy(), plain[..., perm].numpy())
 
+    def test_lanes_rule(self):
+        """The kernel's lanes per query on a 132-SM card: 8 at the first SA
+        level's k=20 and 4 at the first FP level's k=3 (B=32); a lane's
+        share of the list is at most 3 slots, the most the kernel is built
+        for; a busier card never gets more lanes."""
+        knn = importlib.import_module("patchaugnet_tpu_torch.ops.knn")
+        assert knn.lanes_for(32, 4096, 1024, 20, 132) == 8
+        assert knn.lanes_for(32, 1024, 4096, 3, 132) == 4
+        for k in range(1, 33):
+            widths = [knn.lanes_for(b, 1024, 1024, k, 132) for b in (1, 4, 16, 64, 256)]
+            assert set(widths) <= set(knn.LANES) and widths == sorted(widths, reverse=True)
+            assert max(-(-k // g) for g in widths) <= knn._MAX_SLOTS == 3
+
     def test_approx_recall_not_ported(self, rng):
         x = _t(rng.rand(1, 32, 3).astype(np.float32))
         with pytest.raises(NotImplementedError):
@@ -192,6 +207,24 @@ class TestGeometry:
         assert gi.dtype == torch.int32
         np.testing.assert_array_equal(_np(ri), gi.numpy())
         np.testing.assert_allclose(_np(rd), gd.numpy(), atol=1e-6)
+
+    @pytest.mark.parametrize("case", ["duplicated", "all_equal", "n3", "n16"])
+    def test_three_nn_ties_match_jax(self, rng, case):
+        """Tie-heavy 3-NN: duplicated known points on a coarse grid, an
+        all-equal cloud, and known clouds of 3 and 16 points (every index
+        extracted, or a handful of candidates per query)."""
+        n = {"n3": 3, "n16": 16}.get(case, 40)
+        if case == "all_equal":
+            u, k = np.ones((2, 50, 3), np.float32), np.ones((2, n, 3), np.float32)
+        else:
+            u, k = _tied_cloud(rng, 2, 50), _tied_cloud(rng, 2, n)
+        rd, ri = jops.three_nn(jnp.asarray(u), jnp.asarray(k))
+        gd, gi = ops.three_nn(_t(u), _t(k))
+        np.testing.assert_array_equal(_np(ri), gi.numpy())
+        np.testing.assert_array_equal(_np(rd), gd.numpy())
+        # three_nn is knn at k=3, then the square root
+        ki, kd = ops.knn(_t(k), _t(u), 3)
+        assert torch.equal(gi, ki) and torch.equal(gd, torch.sqrt(kd))
 
     def test_interpolate_features(self, rng):
         """Max abs difference measured 1.2e-7 (f32 sums in another order)."""
