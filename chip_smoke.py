@@ -9,7 +9,8 @@ Phases, each fatal on failure:
 
 1. build: compile every CUDA kernel from ``patchaugnet_tpu_torch/csrc``
    with nvcc (sm_90a) into ``build/``, one nvcc per source, all at once,
-   and print the ptxas register/spill report;
+   and print the ptxas register/spill report (a spill in any FPS
+   instantiation fails);
 2. kernels: at the shapes of the forward at B=32 (the three SA levels of
    FPS and kNN at k=20, the three FP levels' 3-NN on the kNN kernel, and
    the top-3 extraction of the FP levels' distance matrices, the route
@@ -19,7 +20,9 @@ Phases, each fatal on failure:
    chunk), hold each kernel against its plain torch version on the card
    (indices and values exactly equal, K1 indices), on random, tied and
    all-equal inputs, hold the 3-NN against the matrix-and-K3 route bit
-   for bit, and time kernel, plain version and a PyTorch yardstick;
+   for bit, and time kernel, plain version and a PyTorch yardstick; K1
+   also at B=100 and at every layout (threads per cloud, points per
+   thread) it is built for that holds the level;
 3. serving: the full-width PatchAugNet (``configs.PATCH_AUG_NET``, seeded
    random weights) answers 4 requests of 32 clouds of 4096 points through
    ``serving.build_forward_fn``; the launch counts must be 3 FPS and 6
@@ -46,6 +49,7 @@ import contextlib
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -120,6 +124,40 @@ def topk_bound(b, m, n, k):
     return bound(b * m * n * 4 + b * m * k * 8, b * m * n)
 
 
+def price_bound(b, m, n):
+    """K6: the base and the price read, k=2 (index, value) pairs written; an add and a compare per element."""
+    return bound(b * m * n * 4 + b * n * 4 + b * m * 2 * 8, 2 * b * m * n)
+
+
+def chunked_bound(chunk):
+    """K4: the chunk read, k=2 (index, value) pairs written; a compare per element."""
+    return bound(chunk.numel() * 4 + chunk.shape[1] * 2 * 8, chunk.numel())
+
+
+def emd_sweep_inputs(torch, ops, gen):
+    """K6's operands at the auction's shapes, drawn from ``gen``: the
+    negated base of two (4, 4096, 3) clouds as the fused sweep forms it, a
+    price row, and the active-set tail (256 of the base's rows, as the
+    active-set gather takes them)."""
+    dev = gen.device
+    x1 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
+    x2 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
+    neg_base = torch.sqrt(ops.pairwise_sqdist(x1, x2)) - 3.0
+    price = torch.rand(EMD_B, EMD_N, generator=gen, device=dev) * 0.05
+    tail_ids = torch.randperm(EMD_N, generator=gen, device=dev)[:EMD_TAIL_ROWS].sort().values
+    return neg_base, price, neg_base[:, tail_ids]
+
+
+def chunked_input(torch, ops, gen):
+    """K4's operand, drawn from ``gen``: the negated value of one 4096-row
+    chunk of a row-chunked auction sweep at n=8192."""
+    dev = gen.device
+    c1 = torch.rand(1, CHUNKED_N, 3, generator=gen, device=dev)
+    c2 = torch.rand(1, CHUNKED_N, 3, generator=gen, device=dev)
+    cprice = torch.rand(1, CHUNKED_N, generator=gen, device=dev) * 0.05
+    return -(3.0 - torch.sqrt(ops.pairwise_sqdist(c1[:, :4096], c2)) - cprice[:, None, :])
+
+
 def level_clouds(torch, ops, fps, gen, batch=B):
     """The forward's point sets at ``batch``: random (batch, 4096, 3) clouds
     drawn from ``gen``, then the SA levels' FPS chain of 1024, 128 and 16
@@ -186,7 +224,7 @@ def read_counts(mods, records):
 def plain_kernels(mods):
     """Route every kernel wrapper to its plain torch version (for the
     on-card reference run); restores the kernels on exit."""
-    swaps = [(mods["fps"], "_farthest_point_sample_cuda", "_farthest_point_sample_torch"),
+    swaps = [(mods["fps"], "_fps_cuda", "_farthest_point_sample_torch"),
              (mods["knn"], "_knn_cuda", "_knn_torch"),
              (mods["topk"], "_topk_extract_cuda", "_topk_extract_torch"),
              (mods["topk"], "_topk_extract_price_cuda", "_topk_extract_price_torch"),
@@ -208,6 +246,10 @@ def phase_build(cuda):
         for line in log.splitlines():
             if ("ptxas" in line and ("Used" in line or "Compiling" in line)) or "spill" in line:
                 say(f"  {name}: {line.strip()}")
+    spills = [line.strip() for line in logs["fps"].splitlines()
+              if any(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))]
+    if spills:
+        raise AssertionError(f"ptxas spills registers in the fps kernels: {spills}")
     say(f"build: {len(logs)} libraries ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc sm_90a, into {cuda.BUILD_DIR})")
 
@@ -231,10 +273,8 @@ def phase_kernels(torch, ops, mods, dev):
         k1.cases.append((ms, plain, None, b_ms, b_by))
         measured(f"K1 fps SA{level} (b,n,m)=({B},{n},{m})",
                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), indices equal")
+    check_fps_layouts(torch, ops, mods["fps"], x, torch.Generator(device=dev).manual_seed(6))
     same = torch.ones(B, N_POINTS, 3, device=dev)
-    if ops.farthest_point_sample(same, 1024).count_nonzero().item() != 0:
-        raise AssertionError("fps: an all-equal cloud must pick index 0 throughout")
-    say("K1 fps: all-equal cloud picks index 0 throughout")
 
     k2 = KernelRecord("knn", "knn", "patchaugnet_tpu_torch/csrc/knn.cu", "patchaugnet_tpu/ops/pallas/knn.py:96")
     knn = mods["knn"]
@@ -303,6 +343,35 @@ def phase_kernels(torch, ops, mods, dev):
     return [k1, k2, k3]
 
 
+def check_fps_layouts(torch, ops, fps, x, gen):
+    """K1 bit-equal to its plain version at the three SA levels at B=32
+    (``x``) and B=100 (clouds drawn from ``gen``), on random,
+    duplicated-grid and all-equal clouds, at every layout the kernel is
+    built for that holds the level's n (the layout rule picks among them)
+    and through the wrapper's own pick."""
+    for clouds in (x, level_clouds(torch, ops, fps._farthest_point_sample_torch, gen, 100)):
+        batch = clouds[0].shape[0]
+        for level in range(3):
+            pts, m = clouds[level], clouds[level + 1].shape[1]
+            n = pts.shape[1]
+            tied = (pts * 8).floor() / 8                       # coarse grid: many equal distances
+            tied[:, 1::7] = tied[:, :1]                        # and duplicated points
+            layouts = [lay for lay in fps.LAYOUTS if lay[0] * lay[1] >= n or lay == fps.SCRATCH]
+            for what, cloud in (("random", pts), ("duplicated-grid", tied), ("all-equal", torch.ones_like(pts))):
+                want = fps._farthest_point_sample_torch(cloud, m)
+                if what == "all-equal" and want.any():
+                    raise AssertionError("fps: the plain version must pick index 0 throughout an all-equal cloud")
+                runs = [("rule", ops.farthest_point_sample(cloud, m))]
+                runs += [(lay, fps._fps_cuda(cloud, m, layout=lay)) for lay in layouts]
+                torch.cuda.synchronize()
+                for lay, got in runs:
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"fps SA{level} B={batch} {what} cloud, layout {lay}: kernel "
+                                             f"indices differ from the plain version")
+            say(f"K1 fps SA{level} B={batch}: bit-equal to the plain version on random, duplicated-grid and "
+                f"all-equal clouds at layouts {layouts} (the rule picks {fps.layout_for(n)})")
+
+
 def check_equal(torch, what, got, want):
     """Indices and values exactly equal (K3-K6 round nothing differently
     from their plain versions)."""
@@ -316,12 +385,7 @@ def phase_emd_kernels(torch, ops, mods, dev):
     """K4-K6 at the auction's shapes, against their plain versions."""
     topk = mods["topk"]
     gen = torch.Generator(device=dev).manual_seed(3)
-    x1 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
-    x2 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
-    neg_base = torch.sqrt(ops.pairwise_sqdist(x1, x2)) - 3.0     # as the fused sweep forms it
-    price = torch.rand(EMD_B, EMD_N, generator=gen, device=dev) * 0.05
-    tail_ids = torch.randperm(EMD_N, generator=gen, device=dev)[:EMD_TAIL_ROWS].sort().values
-    tail = neg_base[:, tail_ids]                                   # the active-set gather
+    neg_base, price, tail = emd_sweep_inputs(torch, ops, gen)
 
     k6 = KernelRecord("topk_extract_price", "topk", "patchaugnet_tpu_torch/csrc/topk.cu",
                       "patchaugnet_tpu/ops/pallas/knn.py:286", counter="price_launches")
@@ -335,7 +399,7 @@ def phase_emd_kernels(torch, ops, mods, dev):
         lib = time_ms(torch, lambda: torch.topk(summed, 2, dim=-1, largest=False), 10)
         add_ms = time_ms(torch, lambda: base + price[:, None, :], 10)
         del summed
-        b_ms, b_by = bound(b * m * n * 4 + b * n * 4 + b * m * 2 * 8, 2 * b * m * n)
+        b_ms, b_by = price_bound(b, m, n)
         k6.cases.append((ms, plain, lib, b_ms, b_by))
         measured(f"K6 topk_extract_price {label} (b,m,n,k)=({b},{m},{n},2)",
                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.topk on the sum {lib:.4f} ms "
@@ -354,11 +418,7 @@ def phase_emd_kernels(torch, ops, mods, dev):
 
     k4 = KernelRecord("topk_extract_chunked", "topk", "patchaugnet_tpu_torch/csrc/topk.cu",
                       "patchaugnet_tpu/ops/pallas/knn.py:330", counter="chunked_launches")
-    c1 = torch.rand(1, CHUNKED_N, 3, generator=gen, device=dev)
-    c2 = torch.rand(1, CHUNKED_N, 3, generator=gen, device=dev)
-    cprice = torch.rand(1, CHUNKED_N, generator=gen, device=dev) * 0.05
-    # the negated value of one 4096-row chunk of the row-chunked sweep
-    chunk = -(3.0 - torch.sqrt(ops.pairwise_sqdist(c1[:, :4096], c2)) - cprice[:, None, :])
+    chunk = chunked_input(torch, ops, gen)
     got = ops.topk_extract_chunked(chunk, 2)
     check_equal(torch, "K4 vs flat K3", got, ops.topk_extract(chunk, 2))
     check_equal(torch, "K4 vs plain", got, topk._topk_extract_torch(chunk, 2))
@@ -366,7 +426,7 @@ def phase_emd_kernels(torch, ops, mods, dev):
     plain = time_ms(torch, lambda: topk._topk_extract_chunked_torch(chunk, 2, 64), 3)
     flat = time_ms(torch, lambda: ops.topk_extract(chunk, 2), 20)
     lib = time_ms(torch, lambda: torch.topk(chunk, 2, dim=-1, largest=False), 10)
-    b_ms, b_by = bound(chunk.numel() * 4 + 4096 * 2 * 8, chunk.numel())
+    b_ms, b_by = chunked_bound(chunk)
     k4.cases.append((ms, plain, lib, b_ms, b_by))
     measured(f"K4 topk_extract_chunked (b,m,n,k)=(1,4096,{CHUNKED_N},2), 64 chunks",
              f"two K3 kernel launches {ms:.4f} ms, flat K3 {flat:.4f} ms, plain {plain:.4f} ms, torch.topk {lib:.4f} ms, "

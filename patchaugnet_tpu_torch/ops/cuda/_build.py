@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -41,7 +41,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # library name -> {C entry point: argument types, the stream included}
 LIBRARIES: Dict[str, Dict[str, list]] = {
-    "fps": {"pan_fps": [_P, _P, _P, _I, _I, _I, _P],
+    "fps": {"pan_fps": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
             "pan_fps_step_floor": [_P, _I, _I, _I, _P]},
     "knn": {"pan_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "topk": {"pan_topk_extract": [_P, _P, _P, _L, _I, _I, _P],
@@ -50,6 +50,8 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# (library, C entry point) -> the bound function, resolved at its first launch
+_entry_points: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -129,15 +131,23 @@ def _library(name: str) -> ctypes.CDLL:
 def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
     """Call ``fn_name`` of library ``name`` on ``device``'s current stream.
 
-    Tensors pass as their data pointers; the caller holds them (and so
-    keeps the memory alive) until the kernel has run on the stream.
+    Tensors pass as their data pointers and ``None`` as a null pointer;
+    the caller holds the tensors (and so keeps the memory alive) until the
+    kernel has run on the stream. The device is entered only when it is
+    not the current one.
     """
-    lib = _library(name)
-    fn = getattr(lib, fn_name)
+    fn = _entry_points.get((name, fn_name))
+    if fn is None:
+        fn = _entry_points[(name, fn_name)] = getattr(_library(name), fn_name)
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*c_args, stream)
+    # the raw stream handle, read as Triton's launcher reads it (no Stream object)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*c_args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*c_args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
-        msg = lib.pan_error_string(err).decode()
+        msg = _library(name).pan_error_string(err).decode()
         raise RuntimeError(f"{fn_name}: CUDA error {err} ({msg})")

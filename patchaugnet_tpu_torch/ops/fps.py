@@ -10,11 +10,13 @@ on ties.
 
 The kernel (``csrc/fps.cu``) is bound by latency on the H100: m - 1
 dependent steps, each an O(n) update and a block-wide arg-max. One block
-takes a cloud, its threads keep the points and their min-distances in
-registers, and a shuffle-then-shared-memory arg-max hands every thread the
-next pick.
+of T threads takes a cloud, each thread keeping PPT points and their
+min-distances in registers; :func:`layout_for` picks (T, PPT) per level,
+and a tensor on the card runs the kernel, with no plain fallback.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,6 +25,42 @@ from .cuda import launch
 
 # kernel launches so far; chip_smoke.py resets and reads it
 launches = 0
+
+# (threads per cloud, points per thread): the layouts the kernel is built
+# for (csrc/fps.cu), which are those layout_for picks; SCRATCH keeps the
+# min-distances in a global row and takes any n
+SCRATCH = (1024, 0)
+LAYOUTS = ((32, 1), (32, 2), (32, 4), (32, 8), (512, 1), (1024, 1), (256, 8), (512, 8), (1024, 8), SCRATCH)
+WARP_MAX_PPT = 8        # one warp holds up to 32 * 8 points
+_ONE_POINT_MAX = 1024   # up to here one point per thread
+_PPT = 8                # beyond, 8 points per thread
+_MAX_REGISTER_POINTS = 1024 * _PPT
+
+
+def layout_for(n: int) -> Tuple[int, int]:
+    """(threads per cloud, points per thread) for clouds of ``n`` points.
+
+    From K1's device time at every layout on an H100
+    (``profile_torch.py --kernels --layouts``, PERF.md): a cloud of up to
+    256 points runs on one warp, which needs no block barrier; up to 1024
+    points one point per thread (512 or 1024 threads); larger clouds 8
+    points per thread on the fewest threads that hold them (256, 512 or
+    1024), where more points per thread put more of each step into the
+    update and fewer into the barrier and the arg-max over the warps;
+    beyond 8192 points the scratch path. The same layout was fastest at
+    B=32 and B=100, so the batch does not enter.
+    """
+    if n > _MAX_REGISTER_POINTS:
+        return SCRATCH
+    if n <= 32 * WARP_MAX_PPT:
+        return 32, _ceil_pow2(-(-n // 32))
+    if n <= _ONE_POINT_MAX:
+        return _ceil_pow2(n), 1
+    return _ceil_pow2(-(-n // _PPT)), _PPT
+
+
+def _ceil_pow2(x: int) -> int:
+    return 1 << max(x - 1, 0).bit_length()
 
 
 def farthest_point_sample(xyz: torch.Tensor, m: int) -> torch.Tensor:
@@ -40,20 +78,28 @@ def farthest_point_sample(xyz: torch.Tensor, m: int) -> torch.Tensor:
     if m <= 0:
         raise ValueError(f"m={m} must be positive")
     if contracts.check_device(xyz, "xyz") == "cuda":
-        return _farthest_point_sample_cuda(xyz, m)
+        return _fps_cuda(xyz, m)
     return _farthest_point_sample_torch(xyz, m)
 
 
-def _farthest_point_sample_cuda(xyz: torch.Tensor, m: int) -> torch.Tensor:
+def _fps_cuda(xyz: torch.Tensor, m: int, layout: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The kernel; ``layout`` overrides :func:`layout_for` (tests and tuning)."""
     global launches
     b, n, _ = xyz.shape
-    idx = torch.zeros((b, m), dtype=torch.int32, device=xyz.device)
+    if n == 0 or n >= 2**31 // 3:
+        raise ValueError(f"xyz {tuple(xyz.shape)}: the CUDA FPS kernel takes 0 < n < 2**31 / 3")
+    if layout is None:
+        layout = layout_for(n)
+    elif layout not in LAYOUTS or 0 < layout[0] * layout[1] < n:
+        raise ValueError(f"layout={layout}: the CUDA FPS kernel is built for {LAYOUTS} "
+                         f"(threads * points per thread >= n, or {SCRATCH}), at n={n}")
     if m == 1 or b == 0:
-        return idx
+        return torch.zeros((b, m), dtype=torch.int32, device=xyz.device)
     xyz = xyz.to(torch.float32).contiguous()
-    # min-distance rows, used by the kernel only for clouds too large for registers
-    scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
-    launch("fps", "pan_fps", xyz.device, xyz, scratch, idx, b, n, m)
+    idx = torch.empty((b, m), dtype=torch.int32, device=xyz.device)
+    threads, ppt = layout
+    scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device) if ppt == 0 else None
+    launch("fps", "pan_fps", xyz.device, xyz, scratch, idx, b, n, m, threads, ppt)
     launches += 1
     return idx
 

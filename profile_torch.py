@@ -3,7 +3,7 @@
 its auction EMD, goes on the card.
 
     python3 profile_torch.py [--batch 32] [--iters 5] [--table PATH] [--root DIR]
-    python3 profile_torch.py --kernels [--lanes] [--batch 32] [--root DIR]
+    python3 profile_torch.py --kernels [--lanes] [--layouts] [--batch 32] [--root DIR]
     python3 profile_torch.py --emd [--table PATH]
 
 Serves the full-width PatchAugNet (``configs.PATCH_AUG_NET``, seeded
@@ -17,17 +17,23 @@ forward:
 - the top operators and kernels by self device time from
   ``torch.profiler`` (``--table`` writes the full table to a file).
 
-With ``--kernels`` it times each kernel of the forward at the shapes the
-forward gives it, ``chip_smoke.py``'s cases with its bounds and
-yardsticks (K1 at the three SA levels; K2 at the three SA levels at k=20
-and the three FP levels' 3-NN at k=3; K3 on the FP levels' distance
-matrices, the 3-NN's former route): the mean per call of back-to-back
-wrapper calls (CUDA events, the wrapper's host cost included) beside the
-device time per launch from the profiler's device rows. Beside K1 it
-times K1's dependent-step floor, a kernel that runs only the barrier and
-the two shuffle trees each of K1's m - 1 picks needs, on K1's grid.
-``--lanes`` adds K2 at every lanes-per-query count the kernel takes at
-that k, the data behind ``ops.knn.lanes_for``. ``--root`` imports ``patchaugnet_tpu_torch`` from
+With ``--kernels`` it times each kernel at the shapes its path gives it,
+``chip_smoke.py``'s cases with its bounds and yardsticks (K1 at the three
+SA levels; K2 at the three SA levels at k=20 and the three FP levels'
+3-NN at k=3; K3 on the FP levels' distance matrices, the 3-NN's former
+route; K6 on the auction's full sweep and active-set tail; K4 on a
+row-chunked auction's chunk): the mean per call of back-to-back wrapper
+calls (CUDA events, the wrapper's host cost included) beside the device
+time per launch from the profiler's device rows, and their gap. Beside K1
+it gives two floors: its dependent-step floor, a kernel that runs only
+the pick each of K1's m - 1 steps needs (the warp and block arg-max and
+the coordinates' hand-over) on K1's grid, and its per-SM update floor
+(the update's instructions over one SM's instruction rate at the card's highest
+SM clock). ``--lanes`` adds K2 at every lanes-per-query count the kernel
+takes at that k, the data behind ``ops.knn.lanes_for``; ``--layouts``
+adds K1's device time at every layout (threads per cloud, points per
+thread) that holds each SA level, at B=32 and B=100, and clouds of 256,
+512, 2048 and 8192 points at B=32, the data behind ``ops.fps.layout_for``. ``--root`` imports ``patchaugnet_tpu_torch`` from
 another checkout (a parent commit unpacked with ``git archive``), so one
 call on one card can time both.
 
@@ -44,6 +50,7 @@ CUDA device; imports nothing of JAX.
 import argparse
 import importlib
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -91,38 +98,85 @@ def device_ms(torch, fn, reps, match=None):
     return sum(getattr(r, key) for r in hits) / 1e3 / max(count, 1), count / reps
 
 
-def profile_kernels(torch, card, dev, batch, lanes_sweep):
-    """K1-K3 at the forward's shapes: ``chip_smoke.py``'s cases, bounds and
-    yardsticks, with the profiler's device time per launch beside each."""
+FPS_INSTRUCTIONS_PER_POINT = 12   # csrc/fps.cu's update: 3 sub, 3 mul, 2 add, a min; the arg-max's max, compare, select
+SM_LANES_PER_CYCLE = 128          # four schedulers, one instruction for 32 lanes each a cycle
+
+
+def sm_clock_mhz():
+    """The card's highest SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def profile_kernels(torch, card, dev, batch, lanes_sweep, layouts_sweep):
+    """K1-K4 and K6 at their paths' shapes: ``chip_smoke.py``'s cases, bounds
+    and yardsticks, with the profiler's device time per launch beside each
+    and the wrapper's host cost (per call minus device per call)."""
     from patchaugnet_tpu_torch import ops
     from patchaugnet_tpu_torch.ops.cuda import _build as cuda
 
     knn = importlib.import_module("patchaugnet_tpu_torch.ops.knn")
+    fps = importlib.import_module("patchaugnet_tpu_torch.ops.fps")
 
-    def report(label, fn, match, b_ms, b_by, extra=""):
-        ms = time_ms(torch, fn, 20)
+    def report(label, fn, match, b_ms, b_by, extra="", launches=1):
+        """Per call: the median over 7 rounds of the mean of 50 back-to-back
+        calls, so that a stall of the shared host falls out. ``launches``
+        kernel launches per call: the device time per call is their device
+        time per launch times that (the profiler may miss a launch's
+        events; its count per call is printed beside)."""
+        ms = statistics.median(time_ms(torch, fn, 50) for _ in range(7))
         dev_ms, per_call = device_ms(torch, fn, 20, match)
         print(f"[{card}] {label}: {ms:.4f} ms per call, device {dev_ms:.4f} ms per launch "
-              f"({per_call:g} launches per call), bound {b_ms:.4f} ms ({b_by}){extra}", flush=True)
+              f"({per_call:g} launches per call recorded), per call minus device "
+              f"{ms - dev_ms * launches:.4f} ms, bound {b_ms:.4f} ms ({b_by}){extra}", flush=True)
         return dev_ms
+
+    # a parent's package may predate the layouts (and its floor takes n)
+    has_layouts = hasattr(fps, "layout_for")
+    sms = knn._sm_count(dev.index or 0)
+    clock = sm_clock_mhz()
+    out = torch.empty(max(batch, 100), device=dev)
+
+    def floor_ms(b, n, m, threads):
+        args = (out, b, m, threads) if has_layouts else (out, b, n, m)
+        return device_ms(torch, lambda: cuda.launch("fps", "pan_fps_step_floor", dev, *args), 20, "step_floor")[0]
 
     gen = torch.Generator(device=dev).manual_seed(0)
     x = smoke.level_clouds(torch, ops, ops.farthest_point_sample, gen, batch)
-    # a parent's package may predate the floor's entry point
-    has_floor = "pan_fps_step_floor" in cuda.LIBRARIES["fps"]
-    out = torch.empty(batch, device=dev)
     for lv in range(3):
         pts, m = x[lv], x[lv + 1].shape[1]
         n = pts.shape[1]
-        fps_ms = report(f"K1 fps SA{lv} (b,n,m)=({batch},{n},{m})", lambda: ops.farthest_point_sample(pts, m),
-                        "fps_", *smoke.fps_bound(batch, n, m))
-        if has_floor:
-            floor_ms = device_ms(torch, lambda: cuda.launch("fps", "pan_fps_step_floor", dev, out, batch, n, m),
-                                 20, "step_floor")[0]
-            print(f"[{card}] K1 fps SA{lv} dependent-step floor (m - 1 = {m - 1} steps of one barrier and "
-                  f"two shuffle trees, timed alone): device {floor_ms:.4f} ms, "
-                  f"{floor_ms / (m - 1) * 1e3:.4f} us per step; K1 {fps_ms / floor_ms:.2f}x the floor",
+        layout = fps.layout_for(n) if has_layouts else None
+        fps_ms = report(f"K1 fps SA{lv} (b,n,m)=({batch},{n},{m})" + (f", layout {layout}" if layout else ""),
+                        lambda: ops.farthest_point_sample(pts, m), "fps_", *smoke.fps_bound(batch, n, m))
+        if "pan_fps_step_floor" in cuda.LIBRARIES["fps"]:
+            f_ms = floor_ms(batch, n, m, layout[0] if layout else 0)
+            update_ms = n * FPS_INSTRUCTIONS_PER_POINT / SM_LANES_PER_CYCLE * (m - 1) / (clock * 1e3)
+            print(f"[{card}] K1 fps SA{lv} floors: dependent steps (m - 1 = {m - 1} picks, timed alone) "
+                  f"device {f_ms:.4f} ms, {f_ms / (m - 1) * 1e3:.4f} us per step, K1 {fps_ms / f_ms:.2f}x; "
+                  f"per-SM update ({n} points x {FPS_INSTRUCTIONS_PER_POINT} instructions / "
+                  f"{SM_LANES_PER_CYCLE} lanes per cycle x {m - 1} steps at {clock:g} MHz) {update_ms:.4f} ms",
                   flush=True)
+    if layouts_sweep and has_layouts:
+        # the SA levels at both batches, then clouds between and beyond them
+        cases = []
+        for b in (32, 100):
+            xb = smoke.level_clouds(torch, ops, ops.farthest_point_sample, gen, b)
+            cases += [(f"SA{lv}", xb[lv], xb[lv + 1].shape[1]) for lv in range(3)]
+        cases += [(f"n={n}", torch.rand(32, n, 3, generator=gen, device=dev), n // 4) for n in (256, 512, 2048, 8192)]
+        for label, pts, m in cases:
+            b, n, _ = pts.shape
+            rule = fps.layout_for(n)
+            fits = [lay for lay in fps.LAYOUTS if lay[0] * lay[1] >= n or lay == fps.SCRATCH]
+            for layout in fits:
+                dev_ms = device_ms(torch, lambda: fps._fps_cuda(pts, m, layout=layout), 10, "fps_")[0]
+                mark = " (the rule's)" if layout == rule else ""
+                print(f"[{card}] K1 layout {label} (b,n,m)=({b},{n},{m}) (threads, points per thread) "
+                      f"{layout}{mark}: device {dev_ms:.4f} ms", flush=True)
+            for threads in sorted({t for t, _ in fits}):
+                print(f"[{card}] K1 step floor {label} b={b} at {threads} threads: device "
+                      f"{floor_ms(b, n, m, threads):.4f} ms", flush=True)
     for label, pts, qry, k in smoke.knn_cases(x):
         n, m = pts.shape[1], qry.shape[1]
         lib, form = smoke.knn_yardsticks(torch, ops, pts, qry, k)
@@ -132,9 +186,7 @@ def profile_kernels(torch, card, dev, batch, lanes_sweep):
             old_dev, old_kernels = device_ms(torch, old, 20)
             extra += (f"; the matrix and K3 {time_ms(torch, old, 20):.4f} ms per call, device "
                       f"{old_dev * old_kernels:.4f} ms in {old_kernels:g} kernels")
-        shape = f"(b,n,m,k)=({batch},{n},{m},{k})"
-        if hasattr(knn, "lanes_for"):                  # a parent's one-thread kernel has none
-            shape += f", {knn.lanes_for(batch, n, m, k, knn._sm_count(dev.index or 0))} lanes"
+        shape = f"(b,n,m,k)=({batch},{n},{m},{k}), {knn.lanes_for(batch, n, m, k, sms)} lanes"
         b_ms, b_by = smoke.knn_bound(batch, n, m, k)
         report(f"K2 knn {label} {shape}", lambda: ops.knn(pts, qry, k), "knn_kernel", b_ms, b_by, extra)
         if lanes_sweep:
@@ -145,9 +197,20 @@ def profile_kernels(torch, card, dev, batch, lanes_sweep):
     for lv in range(3):
         dist = ops.pairwise_sqdist(x[lv], x[lv + 1])
         m, n = dist.shape[1], dist.shape[2]
+        lib = time_ms(torch, lambda: torch.topk(dist, 3, dim=-1, largest=False), 10)
         report(f"K3 topk_extract FP{lv} (b,m,n,k)=({batch},{m},{n},3)", lambda: ops.topk_extract(dist, 3),
-               "topk_kernel", *smoke.topk_bound(batch, m, n, 3))
+               "topk_kernel", *smoke.topk_bound(batch, m, n, 3), f"; torch.topk {lib:.4f} ms")
         del dist
+    gen = torch.Generator(device=dev).manual_seed(3)
+    neg_base, price, tail = smoke.emd_sweep_inputs(torch, ops, gen)
+    for label, base in (("full sweep", neg_base), ("active-set tail", tail)):
+        b, m, n = base.shape
+        report(f"K6 topk_extract_price {label} (b,m,n,k)=({b},{m},{n},2)",
+               lambda: ops.topk_extract_price(base, price, 2), "topk_kernel<2, true>",
+               *smoke.price_bound(b, m, n))
+    chunk = smoke.chunked_input(torch, ops, gen)
+    report(f"K4 topk_extract_chunked (b,m,n,k)=(1,4096,{smoke.CHUNKED_N},2)",
+           lambda: ops.topk_extract_chunked(chunk, 2), "topk_kernel", *smoke.chunked_bound(chunk), launches=2)
     return 0
 
 
@@ -206,6 +269,8 @@ def main():
     parser.add_argument("--kernels", action="store_true",
                         help="time each kernel of the forward at its shapes instead")
     parser.add_argument("--lanes", action="store_true", help="with --kernels: K2 at every lanes count")
+    parser.add_argument("--layouts", action="store_true",
+                        help="with --kernels: K1 at every layout, at B=32 and B=100")
     parser.add_argument("--root", default=ROOT, help="checkout to import patchaugnet_tpu_torch from")
     args = parser.parse_args()
 
@@ -228,7 +293,7 @@ def main():
     if args.emd:
         return profile_emd(torch, card, dev, args.table)
     if args.kernels:
-        return profile_kernels(torch, card, dev, args.batch, args.lanes)
+        return profile_kernels(torch, card, dev, args.batch, args.lanes, args.layouts)
     model = seeded_init_(get_model("patch_aug_net", configs.PATCH_AUG_NET),
                          torch.Generator().manual_seed(0))
     forward = serving.build_forward_fn(model, device=dev)

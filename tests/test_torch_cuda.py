@@ -50,17 +50,57 @@ def _cloud(rng, b, n, device, ties=False):
     return torch.from_numpy(pts).to(device)
 
 
-@pytest.mark.parametrize("b,n,m", [(2, 64, 16), (3, 100, 25), (2, 1024, 128), (2, 4096, 1024),
-                                   (1, 3000, 77), (1, 9000, 40), (2, 12, 20)])
-def test_fps_matches_plain(device, rng, b, n, m):
-    """Every register-width instantiation, the scratch-row path (n > 8192)
-    and m > n."""
-    x = _cloud(rng, b, n, device)
-    before = fps_ops.launches
-    got = ops.farthest_point_sample(x, m)
-    torch.cuda.synchronize()
-    assert fps_ops.launches == before + 1
-    assert torch.equal(got, fps_ops._farthest_point_sample_torch(x, m))
+def _far_ties(rng, b, n, threads, device):
+    """Points in [0, 0.5)^3 and, at indices in different warps and at
+    different points-per-thread slots of a ``threads``-wide layout, copies
+    of the farthest point (1, 1, 1): the first pick after 0 is a tie among
+    them, which the lowest index must win."""
+    pts = rng.rand(b, n, 3).astype(np.float32) * 0.5
+    for j in (n - 1, 3 * n // 4 + 1, n // 2 + 33, threads + 5, 40, 7):
+        if 0 < j < n:
+            pts[:, j] = 1.0
+    return torch.from_numpy(pts).to(device)
+
+
+def _fps_cases():
+    """(layout, b, n, m): the layout rule's pick (layout None) at the SA
+    shapes, at b = 100, at the one-warp, register and scratch boundaries
+    and at m > n; then every layout the kernel is built for, forced, on a
+    full layout (n = threads * points per thread), one with n not a
+    multiple of 32 and a small cloud with m > n (whole warps of padding)."""
+    cases = [(None, b, n, m) for b, n, m in [(2, 64, 16), (3, 100, 25), (2, 1024, 128), (2, 4096, 1024),
+                                             (1, 3000, 77), (1, 9000, 40), (2, 12, 20), (100, 4096, 64),
+                                             (100, 128, 16)]]
+    warp_n = 32 * fps_ops.WARP_MAX_PPT
+    cases += [(None, 1, n, 50) for n in (warp_n, warp_n + 1, 8192, 8193)]
+    for layout in fps_ops.LAYOUTS:
+        full = layout[0] * layout[1] or 8193
+        cases += [(layout, 2, full, min(full, 100)), (layout, 1, full - 5, 33), (layout, 2, min(full, 21), 45)]
+    return cases
+
+
+@pytest.mark.parametrize("layout,b,n,m", _fps_cases())
+def test_fps_matches_plain(device, rng, layout, b, n, m):
+    """Indices bit-equal to the plain version on random clouds, clouds on a
+    coarse grid with duplicated points, ties of the farthest point across
+    warps and slots, and all-equal clouds; one launch per call."""
+    threads = (layout or fps_ops.layout_for(n))[0]
+    for x in (_cloud(rng, b, n, device), _cloud(rng, b, n, device, ties=True),
+              _far_ties(rng, b, n, threads, device), torch.ones(b, n, 3, device=device)):
+        before = fps_ops.launches
+        got = ops.farthest_point_sample(x, m) if layout is None else fps_ops._fps_cuda(x, m, layout=layout)
+        torch.cuda.synchronize()
+        assert fps_ops.launches == before + (m > 1)
+        assert torch.equal(got, fps_ops._farthest_point_sample_torch(x, m))
+
+
+def test_fps_rejects_what_the_kernel_does_not_take(device):
+    x = torch.rand(1, 64, 3, device=device)
+    for layout in ((128, 1), (256, 4), (1024, 16), (512, 0), (32, 1)):   # not built, or too small for n = 64
+        with pytest.raises(ValueError):
+            fps_ops._fps_cuda(x, 8, layout=layout)
+    with pytest.raises(ValueError):
+        fps_ops._fps_cuda(torch.rand(1, 0, 3, device=device), 8)
 
 
 def test_fps_all_equal_and_ties(device, rng):

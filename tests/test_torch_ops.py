@@ -96,6 +96,22 @@ class TestFPS:
             ops.farthest_point_sample(torch.zeros(2, 8, 3), 0)
 
 
+def test_fps_layout_rule():
+    """Every n maps to a layout the kernel is built for that holds it,
+    and the kernel is built for no layout the rule never picks; n > 8192
+    takes the scratch path, n <= 32 x the one-warp points per thread one
+    warp; the SA levels take the layouts PERF.md records."""
+    fps = importlib.import_module("patchaugnet_tpu_torch.ops.fps")
+    picked = {n: fps.layout_for(n) for n in range(1, 10001)}
+    for n, (threads, ppt) in picked.items():
+        assert (threads, ppt) in fps.LAYOUTS
+        assert ((threads, ppt) == fps.SCRATCH) == (n > 8192)
+        assert ppt == 0 or threads * ppt >= n
+        assert (threads == 32) == (n <= 32 * fps.WARP_MAX_PPT)
+    assert set(picked.values()) == set(fps.LAYOUTS)
+    assert [fps.layout_for(n) for n in (4096, 1024, 128)] == [(512, 8), (1024, 1), (32, 4)]
+
+
 class TestKNN:
     @pytest.mark.parametrize("b,n,m,k", [(2, 256, 128, 8), (1, 300, 64, 20), (3, 128, 16, 20)])
     def test_random_matches_fused_kernel(self, rng, b, n, m, k):
