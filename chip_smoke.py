@@ -15,14 +15,19 @@ Phases, each fatal on failure:
    FPS and kNN at k=20, the three FP levels' 3-NN on the kNN kernel, and
    the top-3 extraction of the FP levels' distance matrices, the route
    the 3-NN took before) and of the auction EMD at (4, 4096) (the
-   price-fused top-2 on the full (4, 4096, 4096) base and on the
-   (4, 256, 4096) active-set tail, the two-level top-2 of a 8192-wide row
-   chunk), hold each kernel against its plain torch version on the card
-   (indices and values exactly equal, K1 indices), on random, tied and
-   all-equal inputs, hold the 3-NN against the matrix-and-K3 route bit
-   for bit, and time kernel, plain version and a PyTorch yardstick; K1
-   also at B=100 and at every layout (threads per cloud, points per
-   thread) it is built for that holds the level;
+   price-fused top-2 on the full (4, 4096, 4096) base, and on its
+   active-set tail: 256 rows per cloud read from that base through row
+   ids padded with the sentinel, timed cold in L2 (eight id sets in
+   turn: a call's rows were last read about 105 MB of rows earlier)
+   beside the old route, a gather and K6 on the gathered rows; the
+   two-level top-2 of a 8192-wide row chunk in one launch, beside flat
+   K3), hold each kernel against its plain torch version on
+   the card (indices and values exactly equal, K1 indices), on random,
+   tied and all-equal inputs, K3, K4 and K6 also at every warps-per-row
+   count the top-k kernel is built for, hold the 3-NN against the
+   matrix-and-K3 route bit for bit, and time kernel, plain version and a
+   PyTorch yardstick; K1 also at B=100 and at every layout (threads per
+   cloud, points per thread) it is built for that holds the level;
 3. serving: the full-width PatchAugNet (``configs.PATCH_AUG_NET``, seeded
    random weights) answers 4 requests of 32 clouds of 4096 points through
    ``serving.build_forward_fn``; the launch counts must be 3 FPS and 6
@@ -36,8 +41,9 @@ Phases, each fatal on failure:
    loss and gradient must be finite, and the assignment must equal the
    plain-kernel run on the card; then the opt-in ``unass_floor`` and
    ``eps_schedule`` modes beside it, and a short row-chunked auction at
-   (1, 8192) that runs K4 (``profile_torch.py --emd`` breaks the exact
-   call down by device kernel);
+   (1, 8192) that must launch K4 twice per sweep, once per 4096-row chunk
+   (``profile_torch.py --emd`` breaks the exact call down by device
+   kernel);
 5. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
@@ -67,6 +73,9 @@ CARD = "unknown card"
 FORWARD_LAUNCHES = {"fps": 3, "knn": 6}
 EMD_B, EMD_N, EMD_EPS, EMD_ITERS = 4, 4096, 0.02, 1024  # losses/pointnetvlad_loss.py:205-221
 EMD_TAIL_ROWS = 256                                     # the active-set width R at n=4096
+EMD_TAIL_VALID = (256, 240, 224, 208)                   # unassigned rows per cloud in the timed tail
+TAIL_ID_SETS = 8                # tail ids taken in turn: a call's rows were last read ~105 MB of rows ago (L2: 50 MB)
+SLEEP_CYCLES = 50_000_000       # holds the stream while the host queues a timed run (25 ms at 2 GHz)
 CHUNKED_N, CHUNKED_ITERS = 8192, 20                     # a row-chunked auction, K4 on its path
 
 
@@ -134,18 +143,59 @@ def chunked_bound(chunk):
     return bound(chunk.numel() * 4 + chunk.shape[1] * 2 * 8, chunk.numel())
 
 
+def tail_bound(n, ids):
+    """K6 on the active-set tail: the distinct base rows its ids name (the
+    sentinel as row n - 1), the price and the ids read, k=2 (index,
+    value) pairs written; an add and a compare per slot and column."""
+    b, r = ids.shape
+    flat = ids.clamp_max(n - 1) + n * ids.new_tensor(list(range(b)))[:, None]
+    distinct = int(flat.unique().numel())
+    return bound(distinct * n * 4 + b * n * 4 + b * r * 8 + b * r * 2 * 8, 2 * b * r * n)
+
+
 def emd_sweep_inputs(torch, ops, gen):
     """K6's operands at the auction's shapes, drawn from ``gen``: the
     negated base of two (4, 4096, 3) clouds as the fused sweep forms it, a
-    price row, and the active-set tail (256 of the base's rows, as the
-    active-set gather takes them)."""
+    price row, and ``TAIL_ID_SETS`` sets of the active-set tail's (4, 256)
+    row ids: per cloud ``EMD_TAIL_VALID`` distinct rows in ascending
+    order, the rest of the 256 slots the padding sentinel n, as the
+    auction packs them."""
     dev = gen.device
     x1 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
     x2 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
     neg_base = torch.sqrt(ops.pairwise_sqdist(x1, x2)) - 3.0
     price = torch.rand(EMD_B, EMD_N, generator=gen, device=dev) * 0.05
-    tail_ids = torch.randperm(EMD_N, generator=gen, device=dev)[:EMD_TAIL_ROWS].sort().values
-    return neg_base, price, neg_base[:, tail_ids]
+    id_sets = []
+    for _ in range(TAIL_ID_SETS):
+        ids = torch.full((EMD_B, EMD_TAIL_ROWS), EMD_N, dtype=torch.long, device=dev)
+        for e, valid in enumerate(EMD_TAIL_VALID):
+            ids[e, :valid] = torch.randperm(EMD_N, generator=gen, device=dev)[:valid].sort().values
+        id_sets.append(ids)
+    return neg_base, price, id_sets
+
+
+def gather_rows(torch, base, ids):
+    """The old route's gathered tail: the rows the ids name, the sentinel
+    clamped to the last row, as a (b, r, n) copy."""
+    batch = torch.arange(base.shape[0], device=base.device)[:, None]
+    return base[batch, ids.clamp_max(base.shape[1] - 1)]
+
+
+def queued_ms(torch, fn, reps):
+    """Mean device time per call of ``fn(i)``, i = 0 .. reps - 1, back to
+    back between two CUDA events. A sleep kernel holds the stream while the
+    host queues the calls, so the host's cost per call does not show."""
+    fn(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def chunked_input(torch, ops, gen):
@@ -223,12 +273,14 @@ def read_counts(mods, records):
 @contextlib.contextmanager
 def plain_kernels(mods):
     """Route every kernel wrapper to its plain torch version (for the
-    on-card reference run); restores the kernels on exit."""
+    on-card reference run); restores the kernels on exit. K4's card path
+    takes no chunk count, so its stand-in is the flat plain extraction, the
+    same function (phase 2 holds K4 against its two-level plain version)."""
     swaps = [(mods["fps"], "_fps_cuda", "_farthest_point_sample_torch"),
              (mods["knn"], "_knn_cuda", "_knn_torch"),
              (mods["topk"], "_topk_extract_cuda", "_topk_extract_torch"),
              (mods["topk"], "_topk_extract_price_cuda", "_topk_extract_price_torch"),
-             (mods["topk"], "_topk_extract_chunked_cuda", "_topk_extract_chunked_torch")]
+             (mods["topk"], "_topk_extract_chunked_cuda", "_topk_extract_torch")]
     saved = [getattr(mod, kernel) for mod, kernel, _ in swaps]
     for mod, kernel, plain in swaps:
         setattr(mod, kernel, getattr(mod, plain))
@@ -290,7 +342,7 @@ def phase_kernels(torch, ops, mods, dev):
         lib, pair_ms = knn_yardsticks(torch, ops, pts, qry, k)
         b_ms, b_by = knn_bound(B, n, m, k)
         k2.cases.append((ms, plain, lib, b_ms, b_by))
-        lanes = knn.lanes_for(B, n, m, k, knn._sm_count(dev.index or 0))
+        lanes = knn.lanes_for(B, n, m, k, mods["cuda"].sm_count(dev))
         text = (f"kernel {ms:.4f} ms ({lanes} lanes per query), plain {plain:.4f} ms, torch.topk on the "
                 f"distance matrix {lib:.4f} ms (+{pair_ms:.4f} ms to form it)")
         if label.startswith("FP"):
@@ -324,6 +376,9 @@ def phase_kernels(torch, ops, mods, dev):
         err = (gv - rv).abs().max().item()
         if not torch.equal(gi, ri) or err > 1e-6:
             raise AssertionError(f"topk FP{level}: kernel differs from the plain version (err {err})")
+        for s in mods["topk"].WARPS:
+            got = mods["topk"]._topk_extract_cuda(dist, k, warps=s)
+            check_equal(torch, f"topk FP{level} at {s} warps per row", got, (ri, rv))
         k3.max_abs_err = max(k3.max_abs_err, err)
         ms = time_ms(torch, lambda: ops.topk_extract(dist, k), 20)
         plain = time_ms(torch, lambda: mods["topk"]._topk_extract_torch(dist, k), 3)
@@ -384,56 +439,106 @@ def check_equal(torch, what, got, want):
 def phase_emd_kernels(torch, ops, mods, dev):
     """K4-K6 at the auction's shapes, against their plain versions."""
     topk = mods["topk"]
+    sms = mods["cuda"].sm_count(dev)
     gen = torch.Generator(device=dev).manual_seed(3)
-    neg_base, price, tail = emd_sweep_inputs(torch, ops, gen)
+    neg_base, price, id_sets = emd_sweep_inputs(torch, ops, gen)
+    ids = id_sets[0]
+    b, n = price.shape
+    r = ids.shape[1]
 
     k6 = KernelRecord("topk_extract_price", "topk", "patchaugnet_tpu_torch/csrc/topk.cu",
                       "patchaugnet_tpu/ops/pallas/knn.py:286", counter="price_launches")
-    for label, base in (("full sweep", neg_base), ("active-set tail", tail)):
-        b, m, n = base.shape
-        check_equal(torch, f"K6 {label}", ops.topk_extract_price(base, price, 2),
-                    topk._topk_extract_price_torch(base, price, 2))
-        ms = time_ms(torch, lambda: ops.topk_extract_price(base, price, 2), 20)
-        plain = time_ms(torch, lambda: topk._topk_extract_price_torch(base, price, 2), 3)
-        summed = base + price[:, None, :]
-        lib = time_ms(torch, lambda: torch.topk(summed, 2, dim=-1, largest=False), 10)
-        add_ms = time_ms(torch, lambda: base + price[:, None, :], 10)
-        del summed
-        b_ms, b_by = price_bound(b, m, n)
-        k6.cases.append((ms, plain, lib, b_ms, b_by))
-        measured(f"K6 topk_extract_price {label} (b,m,n,k)=({b},{m},{n},2)",
-                 f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.topk on the sum {lib:.4f} ms "
-                 f"(+{add_ms:.4f} ms to form it), bound {b_ms:.4f} ms ({b_by}), indices and values equal")
+    check_equal(torch, "K6 full sweep", ops.topk_extract_price(neg_base, price, 2),
+                topk._topk_extract_price_torch(neg_base, price, 2))
+    ms = time_ms(torch, lambda: ops.topk_extract_price(neg_base, price, 2), 20)
+    plain = time_ms(torch, lambda: topk._topk_extract_price_torch(neg_base, price, 2), 3)
+    summed = neg_base + price[:, None, :]
+    lib = time_ms(torch, lambda: torch.topk(summed, 2, dim=-1, largest=False), 10)
+    add_ms = time_ms(torch, lambda: neg_base + price[:, None, :], 10)
+    del summed
+    b_ms, b_by = price_bound(b, n, n)
+    k6.cases.append((ms, plain, lib, b_ms, b_by))
+    measured(f"K6 topk_extract_price full sweep (b,m,n,k)=({b},{n},{n},2), "
+             f"{topk.warps_for(b * n, n, sms)} warps per row",
+             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.topk on the sum {lib:.4f} ms "
+             f"(+{add_ms:.4f} ms to form it), bound {b_ms:.4f} ms ({b_by}), indices and values equal")
+
+    # the active-set tail read through the ids from the full base, beside
+    # the old route on the same ids; timed cold in L2, the id sets in turn
+    want = topk._topk_extract_price_torch(neg_base, price, 2, ids)
+    check_equal(torch, "K6 active-set tail", ops.topk_extract_price(neg_base, price, 2, ids), want)
+    for s in topk.WARPS:
+        check_equal(torch, f"K6 active-set tail at {s} warps per row",
+                    topk._topk_extract_price_cuda(neg_base, price, 2, ids, warps=s), want)
+    check_equal(torch, "the old tail route", topk._topk_extract_price_cuda(gather_rows(torch, neg_base, ids),
+                                                                          price, 2, warps=1), want)
+    turn = TAIL_ID_SETS * 8
+    rotate = iter(range(1 << 30))
+    ms = time_ms(torch, lambda: ops.topk_extract_price(neg_base, price, 2, id_sets[next(rotate) % TAIL_ID_SETS]),
+                 turn)
+    queued = queued_ms(torch, lambda i: ops.topk_extract_price(neg_base, price, 2, id_sets[i % TAIL_ID_SETS]),
+                       turn)
+    old = queued_ms(torch, lambda i: topk._topk_extract_price_cuda(
+        gather_rows(torch, neg_base, id_sets[i % TAIL_ID_SETS]), price, 2, warps=1), turn)
+    gather_ms = queued_ms(torch, lambda i: gather_rows(torch, neg_base, id_sets[i % TAIL_ID_SETS]), turn)
+    plain = time_ms(torch, lambda: topk._topk_extract_price_torch(neg_base, price, 2, ids), 3)
+    summed = gather_rows(torch, neg_base, ids) + price[:, None, :]
+    lib = time_ms(torch, lambda: torch.topk(summed, 2, dim=-1, largest=False), 10)
+    form_ms = time_ms(torch, lambda: gather_rows(torch, neg_base, ids) + price[:, None, :], 10)
+    del summed
+    b_ms, b_by = tail_bound(n, ids)
+    k6.cases.append((ms, plain, lib, b_ms, b_by))
+    measured(f"K6 topk_extract_price active-set tail (b,r,n,k)=({b},{r},{n},2), {EMD_TAIL_VALID} valid slots, "
+             f"{topk.warps_for(b * r, n, sms)} warps per row",
+             f"kernel through the ids {ms:.4f} ms per call (the wrapper's host cost included), device "
+             f"{queued:.4f} ms per call against the old route (gather, then K6 at 1 warp per row) {old:.4f} "
+             f"ms (the gather alone {gather_ms:.4f} ms), both queued back to back behind a sleep kernel, "
+             f"every call cold in L2 (the id sets in turn); plain {plain:.4f} ms, torch.topk on the "
+             f"gathered sum {lib:.4f} ms (+{form_ms:.4f} ms to gather and add), bound {b_ms:.4f} ms ({b_by}), "
+             f"indices and values equal in every slot, padding included, at every warps count")
     for k in (3, 8, 32):
-        check_equal(torch, f"K6 generic k={k}", ops.topk_extract_price(tail, price, k),
-                    topk._topk_extract_price_torch(tail, price, k))
-    ms8 = time_ms(torch, lambda: ops.topk_extract_price(tail, price, 8), 20)
-    measured(f"K6 generic k=8 on the tail shape ({EMD_B},{EMD_TAIL_ROWS},{EMD_N})", f"kernel {ms8:.4f} ms")
+        check_equal(torch, f"K6 generic k={k}", ops.topk_extract_price(neg_base, price, k, ids),
+                    topk._topk_extract_price_torch(neg_base, price, k, ids))
+    ms8 = time_ms(torch, lambda: ops.topk_extract_price(neg_base, price, 8, ids), 20)
+    measured(f"K6 generic k=8 on the tail ({b},{r},{n})", f"kernel {ms8:.4f} ms (warm)")
     tied_base = torch.randint(0, 4, (EMD_B, EMD_TAIL_ROWS, EMD_N), generator=gen, device=dev).float()
     tied_price = torch.randint(0, 3, (EMD_B, EMD_N), generator=gen, device=dev).float() * 0.5
+    tied_ids = ids.clamp_max(EMD_TAIL_ROWS)                 # rows of tied_base, the sentinel included
     for k in (2, 20):
         check_equal(torch, f"K6 tied k={k}", ops.topk_extract_price(tied_base, tied_price, k),
                     topk._topk_extract_price_torch(tied_base, tied_price, k))
-    say("K6 topk_extract_price: generic k=3/8/32 and tied base and price (k=2, 20) equal the plain version")
+        check_equal(torch, f"K6 tied through ids k={k}", ops.topk_extract_price(tied_base, tied_price, k, tied_ids),
+                    topk._topk_extract_price_torch(tied_base, tied_price, k, tied_ids))
+    say("K6 topk_extract_price: generic k=3/8/32 and tied base and price (k=2, 20; rows in order and "
+        "through ids) equal the plain version")
 
     k4 = KernelRecord("topk_extract_chunked", "topk", "patchaugnet_tpu_torch/csrc/topk.cu",
                       "patchaugnet_tpu/ops/pallas/knn.py:330", counter="chunked_launches")
     chunk = chunked_input(torch, ops, gen)
+    before = topk.chunked_launches
     got = ops.topk_extract_chunked(chunk, 2)
+    if topk.chunked_launches != before + 1:
+        raise AssertionError("K4: expected one launch per call")
     check_equal(torch, "K4 vs flat K3", got, ops.topk_extract(chunk, 2))
+    check_equal(torch, "K4 vs its two-level plain version", got, topk._topk_extract_chunked_torch(chunk, 2, 64))
     check_equal(torch, "K4 vs plain", got, topk._topk_extract_torch(chunk, 2))
+    for s in topk.WARPS:
+        check_equal(torch, f"K4 chunk at {s} warps per row", topk._topk_extract_cuda(chunk, 2, warps=s), got)
     ms = time_ms(torch, lambda: ops.topk_extract_chunked(chunk, 2), 20)
     plain = time_ms(torch, lambda: topk._topk_extract_chunked_torch(chunk, 2, 64), 3)
     flat = time_ms(torch, lambda: ops.topk_extract(chunk, 2), 20)
+    flat1 = time_ms(torch, lambda: topk._topk_extract_cuda(chunk, 2, warps=1), 20)
     lib = time_ms(torch, lambda: torch.topk(chunk, 2, dim=-1, largest=False), 10)
     b_ms, b_by = chunked_bound(chunk)
     k4.cases.append((ms, plain, lib, b_ms, b_by))
-    measured(f"K4 topk_extract_chunked (b,m,n,k)=(1,4096,{CHUNKED_N},2), 64 chunks",
-             f"two K3 kernel launches {ms:.4f} ms, flat K3 {flat:.4f} ms, plain {plain:.4f} ms, torch.topk {lib:.4f} ms, "
-             f"bound {b_ms:.4f} ms ({b_by}), equal to flat K3 and to the plain version")
+    measured(f"K4 topk_extract_chunked (b,m,n,k)=(1,4096,{CHUNKED_N},2), 64 chunks, "
+             f"{topk.warps_for(chunk.shape[1], CHUNKED_N, sms)} warps per row",
+             f"one launch {ms:.4f} ms, flat K3 {flat:.4f} ms ({flat1:.4f} ms at 1 warp per row), plain "
+             f"{plain:.4f} ms, torch.topk {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), equal to flat K3, to "
+             f"the two-level and the flat plain versions, and at every warps count")
     del chunk
 
-    del neg_base, tail
+    del neg_base
     return [k4, k6]
 
 
@@ -584,9 +689,8 @@ def phase_emd(torch, ops, mods, records, dev):
         ms = (time.perf_counter() - t0) * 1e3
         chunked_counts = read_counts(mods, records)
         sweeps = emd.iterations + 1
-        # two K4 calls per sweep (one per 4096-row chunk), two K3 kernel
-        # launches each, all counted under K4
-        check_launches(chunked_counts, {"topk_extract_chunked": 4 * sweeps}, "row-chunked auction")
+        # two K4 calls per sweep (one per 4096-row chunk), one launch each
+        check_launches(chunked_counts, {"topk_extract_chunked": 2 * sweeps}, "row-chunked auction")
         with plain_kernels(mods):
             plain_dist, plain_assignment = ops.auction_emd(c1, c2, EMD_EPS, CHUNKED_ITERS)
     finally:
@@ -614,7 +718,7 @@ def main():
     from patchaugnet_tpu_torch.ops import cuda
 
     mods = {name: importlib.import_module(f"patchaugnet_tpu_torch.ops.{name}")
-            for name in ("fps", "knn", "topk", "emd")}
+            for name in ("fps", "knn", "topk", "emd", "cuda")}
     smi = card_line()
     CARD = smi
     say(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "

@@ -31,10 +31,10 @@ __device__ __forceinline__ bool lex_less(float v, int i, float w, int j) {
 
 // Offer (v, i) to a list of the K smallest (value, index) pairs seen so far,
 // kept sorted by value, then index. Empty slots hold (+inf, INT_MAX), so
-// +inf values still fill them. The caller offers candidates in increasing
-// index order: an equal value then never displaces a kept one, which keeps
-// the lowest index on ties. Every array index is a compile-time constant
-// after unrolling, so the list stays in registers.
+// +inf values still fill them. The order is strict and total over distinct
+// indices, so the list holds the K smallest pairs offered, the lowest index
+// first on ties, whatever the order of the offers. Every array index is a
+// compile-time constant after unrolling, so the list stays in registers.
 template <int K>
 __device__ __forceinline__ void offer(float (&val)[K], int (&idx)[K], float v, int i) {
     if (!lex_less(v, i, val[K - 1], idx[K - 1])) return;

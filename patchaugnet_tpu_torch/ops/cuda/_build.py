@@ -17,6 +17,7 @@ kernel without synchronising, and returns ``cudaGetLastError()``;
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -44,8 +45,9 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
     "fps": {"pan_fps": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
             "pan_fps_step_floor": [_P, _I, _I, _I, _P]},
     "knn": {"pan_knn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
-    "topk": {"pan_topk_extract": [_P, _P, _P, _L, _I, _I, _P],
-             "pan_topk_extract_price": [_P, _P, _P, _P, _L, _I, _I, _I, _P]},
+    "topk": {"pan_topk_extract": [_P, _P, _P, _L, _I, _I, _I, _P],
+             "pan_topk_extract_price": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+             "pan_topk_extract_price_rows": [_P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -151,3 +153,14 @@ def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = _library(name).pan_error_string(err).decode()
         raise RuntimeError(f"{fn_name}: CUDA error {err} ({msg})")
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of ``device`` (the current CUDA device where it
+    has no index), the input of the kernels' launch-shape rules."""
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count

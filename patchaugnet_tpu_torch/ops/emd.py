@@ -26,7 +26,8 @@ the JAX package:
   - price-fused: the iteration-invariant ``dist - 3.0`` base is formed
     once and kernel K6 adds the price row as it extracts the top-2;
   - active-set tail (``PCR_EMD_ACTIVE``): once every batch element has at
-    most R unassigned rows, only those rows are gathered and swept.
+    most R unassigned rows, only those rows are swept, K6 reading them
+    from the base through their ids.
 All four give the same assignment: the same f32 values are reduced, in
 other groupings. The JAX package gates the kernels on running on a TPU;
 the port keeps every other condition, so CPU and card take the same
@@ -171,7 +172,6 @@ def _auction(
             return _top2_desc(base - price[:, None, :], use_pallas)
 
     rows = torch.arange(n, device=dev).repeat(b, 1)
-    batch = torch.arange(b, device=dev)[:, None]
     active_r = fused_qb if use_fused else None
     use_active = (
         use_fused
@@ -219,8 +219,9 @@ def _auction(
         slot = torch.where(unass & (pos < r), pos, r)
         ids = _set(torch.full((b, r), n, dtype=torch.long, device=dev), slot, rows)
         valid = ids < n
-        rows_g = neg_base[batch, ids.clamp_max(n - 1)]     # (b, R, n)
-        idx, negv = topk_extract_price(rows_g, price, 2)
+        # the kernel reads the R rows through the ids (the sentinel n as
+        # row n - 1); no gathered (b, R, n) copy is formed
+        idx, negv = topk_extract_price(neg_base, price, 2, ids)
         best, better = -negv[..., 0], -negv[..., 1]
         best_i = idx[..., 0].long()                        # (b, R)
         inc = torch.where(valid, best - better + eps_p, _NEG)

@@ -16,13 +16,12 @@ pairs between them, whose k-th entry rejects candidates for all of them.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
 
 from . import contracts
-from .cuda import launch
+from .cuda import launch, sm_count
 from .pairwise import pairwise_sqdist
 from .topk import MAX_K, _topk_extract_torch, topk_extract
 
@@ -53,11 +52,6 @@ def lanes_for(b: int, n: int, m: int, k: int, sms: int) -> int:
            and n >= _MIN_SCAN * 2 * g):
         g *= 2
     return g
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def knn(
@@ -109,7 +103,7 @@ def _knn_cuda(
         raise ValueError(f"xyz {tuple(xyz.shape)}: the CUDA kNN kernel takes b <= {_MAX_GRID_Y} "
                          f"and n < 2**31 / 3")
     if lanes is None:
-        lanes = lanes_for(b, n, m, k, _sm_count(xyz.device.index or 0))
+        lanes = lanes_for(b, n, m, k, sm_count(xyz.device))
     elif lanes not in LANES or -(-k // lanes) > _MAX_SLOTS:
         raise ValueError(f"lanes={lanes}: the CUDA kNN kernel takes {LANES} with at most "
                          f"{_MAX_SLOTS} list slots per lane, ceil(k / lanes), at k={k}")

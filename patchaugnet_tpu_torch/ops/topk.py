@@ -1,4 +1,4 @@
-"""k smallest per row of a matrix: kernels K3 and K6, and K4/K5 on K3.
+"""k smallest per row of a matrix: kernels K3, K4 and K6, and K5 on K3.
 
 - :func:`topk_extract` (K3) replaces ``topk_extract_pallas``
   (``patchaugnet_tpu/ops/pallas/knn.py``, ``_extract_kernel`` +
@@ -11,38 +11,68 @@
 - :func:`topk_extract_price` (K6) replaces ``topk_extract_price_pallas``
   (``_extract_price_kernel``, ``_extract_price2_kernel``): the same
   extraction over ``neg_base + price[:, None, :]`` with the add done in
-  the kernel, the per-iteration top-2 of the price-fused auction sweep and
-  of its active-set tail (``ops/emd.py``).
+  the kernel, the per-iteration top-2 of the price-fused auction sweep;
+  with ``rows`` it reads the rows of the auction's active-set tail
+  through their ids (``ops/emd.py``).
 - :func:`topk_extract_chunked` (K4) keeps the two-level semantics of the
-  JAX function of that name, composed of two K3 extractions.
+  JAX function of that name; on the card it is one launch of the kernel.
 - :data:`topk_extract_pair` (K5) is :func:`topk_extract`: K3's function, by K3's kernel.
 
 The kernel (``csrc/topk.cu``) is bound by bytes on the H100: each element
-is read once for one compare. One warp takes a row with coalesced loads,
-each lane keeps a sorted top-k of its strided slice in registers, and k
-warp-shuffle rounds merge the lanes' lists: one pass over the matrix where
-the TPU kernel made k.
+is read once for one compare. S warps take a row (:func:`warps_for`
+picks S), each a contiguous chunk with 16-byte loads, each lane keeping
+a sorted top-k in registers; k warp-shuffle rounds merge the lanes'
+lists and, for S > 1, a merge in shared memory the warps': one pass over
+the matrix where the TPU kernel made k.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
 
 from . import contracts
-from .cuda import launch
+from .cuda import launch, sm_count
 
 # largest k the kernel is instantiated for
 MAX_K = 32
+# warps per row (S) the kernel is instantiated for, and the target of
+# :func:`warps_for`
+WARPS = (1, 2, 4, 8)
+_WARPS_PER_SM = 16     # resident warps per SM that keep enough loads in flight
+_MIN_CHUNK = 512       # columns per warp at the least
 
 # kernel launches so far, one count per wrapper, added where the kernel is
 # launched; chip_smoke.py resets and reads them. ``chunked_launches``
-# counts the K3 kernel launches made by K4 (two per call), which
-# ``launches`` then leaves out.
+# counts K4's launches (one per call), which ``launches`` leaves out.
 launches = 0
 price_launches = 0
 chunked_launches = 0
+
+
+def warps_for(rows: int, n: int, sms: int) -> int:
+    """Warps per row (S) for ``rows`` rows of ``n`` columns on a card of
+    ``sms`` SMs: one, doubled while the card holds fewer than
+    ``_WARPS_PER_SM`` warps per SM and each warp keeps a chunk of
+    ``_MIN_CHUNK`` columns or more.
+
+    On an H100 this picks 4 for the auction's active-set tail (1024 rows of
+    4096), 2 for K4's 2048 rows of 16384 (b=4, n=16384) and 1 for K4's
+    4096 rows of 8192, the full price-fused sweep and K3's matrices, the
+    fastest or within 2% of it at each (PERF.md).
+    """
+    s = 1
+    while s < WARPS[-1] and rows * s < _WARPS_PER_SM * sms and n >= _MIN_CHUNK * 2 * s:
+        s *= 2
+    return s
+
+
+def _warps(rows: int, n: int, device: torch.device, warps: Optional[int]) -> int:
+    if warps is None:
+        return warps_for(rows, n, sm_count(device))
+    if warps not in WARPS:
+        raise ValueError(f"warps={warps}: the CUDA top-k kernel is built for {WARPS} warps per row")
+    return warps
 
 
 def _check(dist: torch.Tensor, k: int) -> str:
@@ -65,18 +95,26 @@ def topk_extract(dist: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
 
 
 def _topk_extract_cuda(
-    dist: torch.Tensor, k: int, counter: str = "launches"
+    dist: torch.Tensor, k: int, warps: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on the card: one launch of the kernel, counted under ``launches``."""
+    return _launch_topk(dist, k, warps, "launches")
+
+
+def _launch_topk(
+    dist: torch.Tensor, k: int, warps: Optional[int], counter: str
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on ``dist``, counted under ``counter``."""
     if k > MAX_K:
         raise ValueError(f"k={k}: the CUDA top-k kernel takes k <= {MAX_K}")
     dist = dist.to(torch.float32).contiguous()
     b, m, n = dist.shape
+    s = _warps(b * m, n, dist.device, warps)
     idx = torch.empty((b, m, k), dtype=torch.int32, device=dist.device)
     val = torch.empty((b, m, k), dtype=torch.float32, device=dist.device)
-    if b * m == 0:
-        return idx, val
-    launch("topk", "pan_topk_extract", dist.device, dist, idx, val, b * m, n, k)
-    globals()[counter] += 1
+    if b * m:
+        launch("topk", "pan_topk_extract", dist.device, dist, idx, val, b * m, n, k, s)
+        globals()[counter] += 1
     return idx, val
 
 
@@ -95,7 +133,7 @@ def _topk_extract_torch(dist: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch
 
 
 def topk_extract_price(
-    neg_base: torch.Tensor, price: torch.Tensor, k: int
+    neg_base: torch.Tensor, price: torch.Tensor, k: int, rows: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k smallest per row of ``neg_base + price[:, None, :]`` (kernel K6).
 
@@ -105,6 +143,12 @@ def topk_extract_price(
     tie-break, bit-equal to extracting from the materialised sum: the
     kernel performs the same f32 add per element, in registers, so the
     ``(b, m, n)`` sum is never written.
+
+    ``rows``: optional ``(b, r)`` int64 row ids in ``[0, m]``; then output
+    row ``j`` of batch element ``e``, of ``(b, r, k)``, is the extraction
+    of row ``rows[e, j]`` clamped into ``[0, m - 1]`` (``m`` is the
+    padding sentinel of the auction's active set), read by the kernel
+    through the ids with no gathered copy.
     """
     kind = _check(neg_base, k)
     b, m, n = neg_base.shape
@@ -112,13 +156,22 @@ def topk_extract_price(
         raise ValueError(f"price: expected {(b, n)}, got {tuple(price.shape)}")
     if price.device != neg_base.device:
         raise ValueError(f"price on {price.device}, neg_base on {neg_base.device}")
+    if rows is not None:
+        if rows.dim() != 2 or rows.shape[0] != b or rows.dtype != torch.int64:
+            raise ValueError(f"rows: expected (b={b}, r) int64, got {tuple(rows.shape)} {rows.dtype}")
+        if rows.device != neg_base.device:
+            raise ValueError(f"rows on {rows.device}, neg_base on {neg_base.device}")
     if kind == "cuda":
-        return _topk_extract_price_cuda(neg_base, price, k)
-    return _topk_extract_price_torch(neg_base, price, k)
+        return _topk_extract_price_cuda(neg_base, price, k, rows)
+    return _topk_extract_price_torch(neg_base, price, k, rows)
 
 
 def _topk_extract_price_cuda(
-    neg_base: torch.Tensor, price: torch.Tensor, k: int
+    neg_base: torch.Tensor,
+    price: torch.Tensor,
+    k: int,
+    rows: Optional[torch.Tensor] = None,
+    warps: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     global price_launches
     if k > MAX_K:
@@ -126,20 +179,34 @@ def _topk_extract_price_cuda(
     neg_base = neg_base.to(torch.float32).contiguous()
     price = price.to(torch.float32).contiguous()
     b, m, n = neg_base.shape
-    idx = torch.empty((b, m, k), dtype=torch.int32, device=neg_base.device)
-    val = torch.empty((b, m, k), dtype=torch.float32, device=neg_base.device)
-    if b * m == 0:
+    r = m if rows is None else rows.shape[1]
+    s = _warps(b * r, n, neg_base.device, warps)
+    idx = torch.empty((b, r, k), dtype=torch.int32, device=neg_base.device)
+    val = torch.empty((b, r, k), dtype=torch.float32, device=neg_base.device)
+    if b * r == 0:
         return idx, val
-    launch("topk", "pan_topk_extract_price", neg_base.device, neg_base, price, idx, val,
-           b * m, m, n, k)
-    price_launches += 1
+    if rows is None:
+        launch("topk", "pan_topk_extract_price", neg_base.device, neg_base, price, idx, val,
+               b * m, m, n, k, s)
+        price_launches += 1
+    else:
+        if rows.stride(1) != 1:
+            rows = rows.contiguous()
+        launch("topk", "pan_topk_extract_price_rows", neg_base.device, neg_base, price, rows,
+               rows.stride(0), idx, val, b * r, r, m, n, k, s)
+        price_launches += 1
     return idx, val
 
 
 def _topk_extract_price_torch(
-    neg_base: torch.Tensor, price: torch.Tensor, k: int
+    neg_base: torch.Tensor, price: torch.Tensor, k: int, rows: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: materialise the f32 sum, then :func:`_topk_extract_torch`."""
+    """Plain version: gather the rows (each id clamped into ``[0, m - 1]``,
+    the sentinel ``m`` to the last row), materialise the f32 sum, then
+    :func:`_topk_extract_torch`."""
+    if rows is not None:
+        batch = torch.arange(neg_base.shape[0], device=neg_base.device)[:, None]
+        neg_base = neg_base[batch, rows.clamp(0, neg_base.shape[1] - 1)]
     return _topk_extract_torch(neg_base.to(torch.float32) + price.to(torch.float32)[:, None, :], k)
 
 
@@ -151,14 +218,15 @@ def topk_extract_chunked(
     * k`` survivors.
 
     The JAX package takes it where a row is too wide for the TPU kernel's
-    flat VMEM tile; K3 streams rows of any width, so here it is two K3
-    extractions and an index fix-up, the composition of the JAX function.
-    The result equals :func:`topk_extract`'s: the top-k of a union of
-    per-chunk top-ks is the global top-k, and chunk-major candidate order
-    keeps the lowest global index on ties. ``num_chunks`` defaults to the
-    divisor of ``n`` nearest below ``sqrt(n / k)``; a chunk count of 1, one
-    that does not divide ``n`` or chunks narrower than ``k`` fall back to
-    the flat extraction.
+    flat VMEM tile. The result equals :func:`topk_extract`'s: the top-k of
+    a union of per-chunk top-ks is the global top-k, and chunk-major
+    candidate order keeps the lowest global index on ties. ``num_chunks``
+    defaults to the divisor of ``n`` nearest below ``sqrt(n / k)``; a chunk
+    count of 1, one that does not divide ``n`` or chunks narrower than
+    ``k`` fall back to the flat extraction, as in the JAX function. On the
+    card the two levels are one launch of the kernel, whose S warps per
+    row (:func:`warps_for`, not ``num_chunks``) are the first level and
+    whose merge in shared memory is the second.
     """
     kind = _check(dist, k)
     b, m, n = dist.shape
@@ -169,27 +237,28 @@ def topk_extract_chunked(
     if num_chunks <= 1 or n % num_chunks or n // num_chunks < k:
         return topk_extract(dist, k)
     if kind == "cuda":
-        return _topk_extract_chunked_cuda(dist, k, num_chunks)
+        return _topk_extract_chunked_cuda(dist, k)
     return _topk_extract_chunked_torch(dist, k, num_chunks)
 
 
-def _two_level(dist, k, c, extract):
-    b, m, n = dist.shape
-    sub = n // c
-    li, lv = extract(dist.reshape(b, m * c, sub), k)          # chunk-major rows
-    offsets = torch.arange(c, dtype=torch.int32, device=dist.device)[:, None] * sub
-    cand_idx = (li.reshape(b, m, c, k) + offsets).reshape(b, m, c * k)
-    mi, mv = extract(lv.reshape(b, m, c * k), k)
-    return torch.gather(cand_idx, -1, mi.long()), mv
-
-
-def _topk_extract_chunked_cuda(dist, k, c):
-    return _two_level(dist, k, c, functools.partial(_topk_extract_cuda, counter="chunked_launches"))
+def _topk_extract_chunked_cuda(
+    dist: torch.Tensor, k: int, warps: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 on the card: one launch of the kernel, counted under
+    ``chunked_launches``; the chunk count does not enter it."""
+    return _launch_topk(dist, k, warps, "chunked_launches")
 
 
 def _topk_extract_chunked_torch(dist, k, c):
-    """Plain version: the same two levels on :func:`_topk_extract_torch`."""
-    return _two_level(dist, k, c, _topk_extract_torch)
+    """Plain version: the two levels of the JAX function on
+    :func:`_topk_extract_torch`."""
+    b, m, n = dist.shape
+    sub = n // c
+    li, lv = _topk_extract_torch(dist.reshape(b, m * c, sub), k)    # chunk-major rows
+    offsets = torch.arange(c, dtype=torch.int32, device=dist.device)[:, None] * sub
+    cand_idx = (li.reshape(b, m, c, k) + offsets).reshape(b, m, c * k)
+    mi, mv = _topk_extract_torch(lv.reshape(b, m, c * k), k)
+    return torch.gather(cand_idx, -1, mi.long()), mv
 
 
 # Counterpart of ``topk_extract_pair_pallas`` (K5): the same function as

@@ -3,8 +3,8 @@
 its auction EMD, goes on the card.
 
     python3 profile_torch.py [--batch 32] [--iters 5] [--table PATH] [--root DIR]
-    python3 profile_torch.py --kernels [--lanes] [--layouts] [--batch 32] [--root DIR]
-    python3 profile_torch.py --emd [--table PATH]
+    python3 profile_torch.py --kernels [--lanes] [--layouts] [--warps] [--batch 32] [--root DIR]
+    python3 profile_torch.py --emd [--table PATH] [--root DIR]
 
 Serves the full-width PatchAugNet (``configs.PATCH_AUG_NET``, seeded
 random weights) through ``serving.build_forward_fn`` and reports, per
@@ -21,8 +21,10 @@ With ``--kernels`` it times each kernel at the shapes its path gives it,
 ``chip_smoke.py``'s cases with its bounds and yardsticks (K1 at the three
 SA levels; K2 at the three SA levels at k=20 and the three FP levels'
 3-NN at k=3; K3 on the FP levels' distance matrices, the 3-NN's former
-route; K6 on the auction's full sweep and active-set tail; K4 on a
-row-chunked auction's chunk): the mean per call of back-to-back wrapper
+route; K6 on the auction's full sweep and on its active-set tail read through
+row ids, cold in L2 (eight id sets in turn) and warm (one set), beside
+the old route, a gather and K6 on the gathered rows; K4 on a row-chunked
+auction's chunk): the mean per call of back-to-back wrapper
 calls (CUDA events, the wrapper's host cost included) beside the device
 time per launch from the profiler's device rows, and their gap. Beside K1
 it gives two floors: its dependent-step floor, a kernel that runs only
@@ -33,16 +35,23 @@ SM clock). ``--lanes`` adds K2 at every lanes-per-query count the kernel
 takes at that k, the data behind ``ops.knn.lanes_for``; ``--layouts``
 adds K1's device time at every layout (threads per cloud, points per
 thread) that holds each SA level, at B=32 and B=100, and clouds of 256,
-512, 2048 and 8192 points at B=32, the data behind ``ops.fps.layout_for``. ``--root`` imports ``patchaugnet_tpu_torch`` from
-another checkout (a parent commit unpacked with ``git archive``), so one
-call on one card can time both.
+512, 2048 and 8192 points at B=32, the data behind ``ops.fps.layout_for``;
+``--warps`` adds the top-k kernel's device time at every warps-per-row
+count it is built for, at the shapes of its paths (K6's tail and full
+sweep, K4 at n=8192 and at n=16384, b=4, K3's FP0 matrix), the data
+behind ``ops.topk.warps_for``. ``--root`` imports ``patchaugnet_tpu_torch`` from
+another checkout with this package's interface (a commit unpacked with
+``git archive``), so one call on one card can time both; a checkout
+whose interface differs is timed with its own ``profile_torch.py``.
 
 With ``--emd`` it runs ``ops.auction_emd`` instead, at the reference
 call site of ``emd_loss`` (two (4, 4096, 3) clouds, eps 0.02, 1024
 iterations): the host time of the exact call and of the opt-in
-``unass_floor``/``eps_schedule`` modes, then one exact call under
-``torch.profiler`` with the device's busy share, kernels per iteration,
-K6's share and the top device kernels.
+``unass_floor``/``eps_schedule`` modes, the number of active-set tail
+iterations and the mean number of valid (non-padding) slots per tail
+launch, then one exact call under ``torch.profiler`` with the device's
+busy share, kernels per iteration, K6's share (every instantiation) and
+the top device kernels.
 
 Every number is printed beside the card's name and power limit. Needs a
 CUDA device; imports nothing of JAX.
@@ -98,6 +107,7 @@ def device_ms(torch, fn, reps, match=None):
     return sum(getattr(r, key) for r in hits) / 1e3 / max(count, 1), count / reps
 
 
+K6_KERNEL = "topk_kernel<2, true"   # K6 at the auction's k=2, every instantiation (row ids or not, any S)
 FPS_INSTRUCTIONS_PER_POINT = 12   # csrc/fps.cu's update: 3 sub, 3 mul, 2 add, a min; the arg-max's max, compare, select
 SM_LANES_PER_CYCLE = 128          # four schedulers, one instruction for 32 lanes each a cycle
 
@@ -109,7 +119,7 @@ def sm_clock_mhz():
     return float(out.stdout.strip().splitlines()[0])
 
 
-def profile_kernels(torch, card, dev, batch, lanes_sweep, layouts_sweep):
+def profile_kernels(torch, card, dev, batch, lanes_sweep, layouts_sweep, warps_sweep):
     """K1-K4 and K6 at their paths' shapes: ``chip_smoke.py``'s cases, bounds
     and yardsticks, with the profiler's device time per launch beside each
     and the wrapper's host cost (per call minus device per call)."""
@@ -134,7 +144,7 @@ def profile_kernels(torch, card, dev, batch, lanes_sweep, layouts_sweep):
 
     # a parent's package may predate the layouts (and its floor takes n)
     has_layouts = hasattr(fps, "layout_for")
-    sms = knn._sm_count(dev.index or 0)
+    sms = cuda.sm_count(dev)
     clock = sm_clock_mhz()
     out = torch.empty(max(batch, 100), device=dev)
 
@@ -201,17 +211,78 @@ def profile_kernels(torch, card, dev, batch, lanes_sweep, layouts_sweep):
         report(f"K3 topk_extract FP{lv} (b,m,n,k)=({batch},{m},{n},3)", lambda: ops.topk_extract(dist, 3),
                "topk_kernel", *smoke.topk_bound(batch, m, n, 3), f"; torch.topk {lib:.4f} ms")
         del dist
+    topk = importlib.import_module("patchaugnet_tpu_torch.ops.topk")
     gen = torch.Generator(device=dev).manual_seed(3)
-    neg_base, price, tail = smoke.emd_sweep_inputs(torch, ops, gen)
-    for label, base in (("full sweep", neg_base), ("active-set tail", tail)):
-        b, m, n = base.shape
-        report(f"K6 topk_extract_price {label} (b,m,n,k)=({b},{m},{n},2)",
-               lambda: ops.topk_extract_price(base, price, 2), "topk_kernel<2, true>",
-               *smoke.price_bound(b, m, n))
+    neg_base, price, id_sets = smoke.emd_sweep_inputs(torch, ops, gen)
+    b, n = price.shape
+    report(f"K6 topk_extract_price full sweep (b,m,n,k)=({b},{n},{n},2)",
+           lambda: ops.topk_extract_price(neg_base, price, 2), K6_KERNEL, *smoke.price_bound(b, n, n))
+    # the tail through the ids, and the old route (a gather, then K6 on the
+    # gathered rows); cold (the id sets in turn) and warm (one set)
+    routes = [("K6 through the ids", lambda ids: ops.topk_extract_price(neg_base, price, 2, ids)),
+              ("gather, then K6", lambda ids: ops.topk_extract_price(smoke.gather_rows(torch, neg_base, ids),
+                                                                     price, 2))]
+    b_ms, b_by = smoke.tail_bound(n, id_sets[0])
+    for label, fn in routes:
+        for temp, sets in (("cold", id_sets), ("warm", id_sets[:1])):
+            turn = iter(range(1 << 30))
+            call = lambda: fn(sets[next(turn) % len(sets)])   # noqa: E731
+            ms = statistics.median(time_ms(torch, call, 8 * len(id_sets)) for _ in range(7))
+            queued = smoke.queued_ms(torch, lambda i: fn(sets[i % len(sets)]), 8 * len(id_sets))
+            k6_ms, per_call = device_ms(torch, call, 24, K6_KERNEL)
+            all_ms, kernels = device_ms(torch, call, 24)
+            print(f"[{card}] K6 active-set tail (b,r,n,k)=({b},{sets[0].shape[1]},{n},2), {smoke.EMD_TAIL_VALID} "
+                  f"valid slots, {temp} in L2, {label}: {ms:.4f} ms per call, device {queued:.4f} ms per call "
+                  f"(queued behind a sleep kernel); profiler: K6 {k6_ms:.4f} ms per launch ({per_call:g} per "
+                  f"call recorded), every kernel of the route {all_ms * kernels:.4f} ms in {kernels:g} kernels; "
+                  f"per call minus device {ms - all_ms * kernels:.4f} ms; bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
     chunk = smoke.chunked_input(torch, ops, gen)
     report(f"K4 topk_extract_chunked (b,m,n,k)=(1,4096,{smoke.CHUNKED_N},2)",
-           lambda: ops.topk_extract_chunked(chunk, 2), "topk_kernel", *smoke.chunked_bound(chunk), launches=2)
+           lambda: ops.topk_extract_chunked(chunk, 2), "topk_kernel", *smoke.chunked_bound(chunk))
+    report(f"K3 flat on K4's chunk (b,m,n,k)=(1,4096,{smoke.CHUNKED_N},2)",
+           lambda: ops.topk_extract(chunk, 2), "topk_kernel", *smoke.chunked_bound(chunk))
+    if warps_sweep:
+        profile_warps(torch, card, dev, cuda, topk, neg_base, price, id_sets, chunk)
     return 0
+
+
+def profile_warps(torch, card, dev, cuda, topk, neg_base, price, id_sets, chunk):
+    """The top-k kernel's device ms per launch at every warps-per-row count
+    it is built for, at the shapes of its paths, every input larger than
+    the L2 cache: the tail takes its id sets in turn (a call's rows were
+    last read about 105 MB of rows earlier)."""
+    b, n = price.shape
+    r = id_sets[0].shape[1]
+    sms = cuda.sm_count(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    full_sets = [torch.stack([torch.randperm(n, generator=gen, device=dev)[:r].sort().values for _ in range(b)])
+                 for _ in id_sets]
+    wide = torch.rand(4, 512, 16384, generator=gen, device=dev)
+    fp0 = torch.rand(32, 4096, 1024, generator=gen, device=dev)
+    turn = iter(range(1 << 30))
+    cases = [
+        ("K6 tail, padded ids", b * r, n,
+         lambda s: topk._topk_extract_price_cuda(neg_base, price, 2, id_sets[next(turn) % len(id_sets)], warps=s)),
+        ("K6 tail, every slot valid", b * r, n,
+         lambda s: topk._topk_extract_price_cuda(neg_base, price, 2, full_sets[next(turn) % len(full_sets)],
+                                                 warps=s)),
+        ("K6 full sweep (4, 4096, 4096)", b * n, n,
+         lambda s: topk._topk_extract_price_cuda(neg_base, price, 2, warps=s)),
+        ("K4 (1, 4096, 8192)", chunk.shape[1], chunk.shape[2],
+         lambda s: topk._topk_extract_cuda(chunk, 2, warps=s)),
+        ("K4 at n=16384, b=4 (4, 512, 16384)", 4 * 512, 16384,
+         lambda s: topk._topk_extract_cuda(wide, 2, warps=s)),
+        ("K3 FP0 matrix (32, 4096, 1024), k=3", 32 * 4096, 1024,
+         lambda s: topk._topk_extract_cuda(fp0, 3, warps=s)),
+    ]
+    for label, rows, cols, fn in cases:
+        rule = topk.warps_for(rows, cols, sms)
+        for s in topk.WARPS:
+            dev_ms, per_call = device_ms(torch, lambda s=s: fn(s), 24, "topk_kernel")
+            mark = " (the rule's)" if s == rule else ""
+            print(f"[{card}] top-k warps {label}: {s} warps per row{mark}: device {dev_ms:.4f} ms "
+                  f"({per_call:g} launches per call recorded)", flush=True)
 
 
 def profile_emd(torch, card, dev, table):
@@ -224,6 +295,27 @@ def profile_emd(torch, card, dev, table):
     pc1 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
     pc2 = torch.rand(EMD_B, EMD_N, 3, generator=gen, device=dev)
     ops.auction_emd(pc1, pc2, EMD_EPS, 8)                    # warm-up
+    tail_launches, tail_slots = 0, []
+    sweep = emd.topk_extract_price
+
+    def spy(neg_base, price, k, rows=None):
+        """Counts the tail's launches (rows read through ids) and the valid
+        (non-padding) slots of each."""
+        nonlocal tail_launches
+        if rows is not None:
+            tail_launches += 1
+            tail_slots.append(int((rows < neg_base.shape[1]).sum()))
+        return sweep(neg_base, price, k, rows)
+
+    emd.topk_extract_price = spy
+    try:
+        ops.auction_emd(pc1, pc2, EMD_EPS, EMD_ITERS)
+    finally:
+        emd.topk_extract_price = sweep
+    slots = (f"{statistics.mean(tail_slots):.1f} valid slots of {EMD_B} x 256 per tail launch on average"
+             if tail_slots else "no tail launch")
+    print(f"[{card}] auction_emd exact: {emd.iterations} iterations, {tail_launches} on the active-set tail, "
+          f"{slots}", flush=True)
     call_ms = {}
     for label, kw in (("exact", {}), ("unass_floor=41", {"unass_floor": 41}),
                       ("eps_schedule=(10, 1)", {"eps_schedule": (10.0, 1.0)}),
@@ -246,7 +338,7 @@ def profile_emd(torch, card, dev, table):
         window_ms = (time.perf_counter() - t0) * 1e3
     key, rows, kernels = device_kernels(prof)
     device_ms = sum(getattr(r, key) for r in kernels) / 1e3
-    k6_ms = sum(getattr(r, key) for r in kernels if "topk_kernel<2, true>" in r.key) / 1e3
+    k6_ms = sum(getattr(r, key) for r in kernels if K6_KERNEL in r.key) / 1e3
     exact = call_ms["exact"]
     print(f"[{card}] profiler, one exact call: device busy {device_ms:.3f} ms, "
           f"{sum(r.count for r in kernels) / emd.iterations:.1f} device kernels per iteration; "
@@ -271,6 +363,8 @@ def main():
     parser.add_argument("--lanes", action="store_true", help="with --kernels: K2 at every lanes count")
     parser.add_argument("--layouts", action="store_true",
                         help="with --kernels: K1 at every layout, at B=32 and B=100")
+    parser.add_argument("--warps", action="store_true",
+                        help="with --kernels: the top-k kernel at every warps-per-row count")
     parser.add_argument("--root", default=ROOT, help="checkout to import patchaugnet_tpu_torch from")
     args = parser.parse_args()
 
@@ -293,7 +387,7 @@ def main():
     if args.emd:
         return profile_emd(torch, card, dev, args.table)
     if args.kernels:
-        return profile_kernels(torch, card, dev, args.batch, args.lanes, args.layouts)
+        return profile_kernels(torch, card, dev, args.batch, args.lanes, args.layouts, args.warps)
     model = seeded_init_(get_model("patch_aug_net", configs.PATCH_AUG_NET),
                          torch.Generator().manual_seed(0))
     forward = serving.build_forward_fn(model, device=dev)

@@ -10,8 +10,9 @@ kernels with nvcc into ``build/``.
 
 Indices must be exactly equal; values agree to 1e-6 (the kernels and the
 plain versions round every distance the same way, so they are expected
-to agree bit for bit). The top-k kernels (K3, and K4-K6 built on the same
-row scan) and the auction EMD that runs them are held to exact equality.
+to agree bit for bit). The top-k kernel (K3, K4 and K6, at every built
+warps-per-row count) and the auction EMD that runs it are held to exact
+equality.
 """
 import importlib
 
@@ -232,19 +233,121 @@ def test_price_matches_plain(device, rng, b, m, n, k):
 
 @pytest.mark.parametrize("k", [2, 9])
 def test_chunked_matches_flat(device, rng, k):
-    """K4 at n=8192 against flat K3 and the plain version, with ties; its
-    two K3 kernel launches count under K4 alone."""
+    """K4 at n=8192 against flat K3, its two-level plain version and the
+    flat plain version, with ties; one launch, counted under K4 alone."""
     d = rng.rand(1, 256, 8192).astype(np.float32)
     d[:, :, ::13] = d[:, :, 0:1]
     d = torch.from_numpy(d).to(device)
     before = topk_ops.chunked_launches, topk_ops.launches
     gi, gv = ops.topk_extract_chunked(d, k)
     torch.cuda.synchronize()
-    assert (topk_ops.chunked_launches, topk_ops.launches) == (before[0] + 2, before[1])
+    assert (topk_ops.chunked_launches, topk_ops.launches) == (before[0] + 1, before[1])
     fi, fv = ops.topk_extract(d, k)
+    ti, tv = topk_ops._topk_extract_chunked_torch(d, k, 64)
     ri, rv = topk_ops._topk_extract_torch(d, k)
     assert torch.equal(gi, fi) and torch.equal(gv, fv)
+    assert torch.equal(gi, ti) and torch.equal(gv, tv)
     assert torch.equal(gi, ri) and torch.equal(gv, rv)
+
+
+def _split_row_inputs(rng, b, m, n, device):
+    """Random rows with tied columns, a few all-equal rows, and a price row
+    per batch element with a run of equal prices."""
+    base = (rng.rand(b, m, n).astype(np.float32) - 0.5) * 4
+    base[:, :, ::5] = base[:, :, 1:2]
+    base[:, ::9] = 0.75
+    price = rng.rand(b, n).astype(np.float32) * 2
+    price[:, n // 3:n // 2] = price[:, :1]
+    return torch.from_numpy(base).to(device), torch.from_numpy(price).to(device)
+
+
+def _split_row_ids(rng, b, m, r, device):
+    """(b, r) ids into m rows with the auction's unit column stride and a
+    row stride of r + 1 (a slice, as the active set's ids are): unsorted,
+    repeated, the sentinel m and the last row, different per batch
+    element."""
+    ids = rng.randint(0, m + 1, (b, r + 1))
+    ids[:, ::6] = ids[:, 2:3]
+    ids[:, 1::11] = m
+    ids[:, 3] = m - 1
+    return torch.from_numpy(ids.astype(np.int64)).to(device)[:, :r]
+
+
+@pytest.mark.parametrize("warps", topk_ops.WARPS)
+@pytest.mark.parametrize("mode", ["plain", "price", "rows"])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 32])
+def test_split_row_matches_plain(device, rng, warps, mode, k):
+    """The top-k kernel at every built warps-per-row count S, on K3's
+    matrix, K6's base + price and K6 through row ids: n = 256 (S = 8 at
+    k = 32 leaves each warp 32 columns), n = 1000 (not a multiple of
+    4 * 32 * S), n = 4100 (float4 chunks at every S, the last one short)
+    and n = 1027 (not a multiple of 4: only every fourth row is 16-byte
+    aligned), tied columns and prices, all-equal rows; indices and values
+    exactly equal, one launch per call."""
+    b, m, r = 3, 64, 40
+    for n in (256, 1000, 4100, 1027):
+        base, price = _split_row_inputs(rng, b, m, n, device)
+        if mode == "plain":
+            before = topk_ops.launches
+            got = topk_ops._topk_extract_cuda(base, k, warps=warps)
+            want = topk_ops._topk_extract_torch(base, k)
+            assert topk_ops.launches == before + 1
+        else:
+            ids = _split_row_ids(rng, b, m, r, device) if mode == "rows" else None
+            before = topk_ops.price_launches
+            got = topk_ops._topk_extract_price_cuda(base, price, k, ids, warps=warps)
+            want = topk_ops._topk_extract_price_torch(base, price, k, ids)
+            assert topk_ops.price_launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), f"n={n}"
+
+
+@pytest.mark.parametrize("warps", topk_ops.WARPS)
+def test_split_row_clamps_ids_into_range(device, rng, warps):
+    """Row ids outside [0, m]: the kernel clamps them into [0, m - 1] as
+    its plain version does (negative ids to row 0, ids past the sentinel
+    to row m - 1), with no read of another batch element's rows."""
+    b, m, n = 2, 16, 300
+    base, price = _split_row_inputs(rng, b, m, n, device)
+    ids = torch.tensor([[-1, 3, m, -(2 ** 40), m + 5, 0], [m - 1, -3, 7, m, -1, 2 ** 40]], device=device)
+    got = topk_ops._topk_extract_price_cuda(base, price, 3, ids, warps=warps)
+    want = topk_ops._topk_extract_price_torch(base, price, 3, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    clamped = topk_ops._topk_extract_price_torch(base, price, 3, ids.clamp(0, m - 1))
+    assert torch.equal(got[0], clamped[0]) and torch.equal(got[1], clamped[1])
+
+
+def test_split_row_rejects_what_the_kernel_does_not_take(device):
+    d = torch.rand(1, 8, 64, device=device)
+    for warps in (0, 3, 16):
+        with pytest.raises(ValueError):
+            topk_ops._topk_extract_cuda(d, 2, warps=warps)
+    with pytest.raises(ValueError):
+        ops.topk_extract_price(d, torch.rand(1, 64, device=device), 2, torch.zeros(1, 4, dtype=torch.int32,
+                                                                                      device=device))
+
+
+def test_auction_tail_reads_rows_through_ids(device, rng, monkeypatch):
+    """The auction at (2, 512) on the card: its active-set tail hands K6
+    the row ids (no gathered copy), every sweep is one K6 launch, and the
+    assignment and distances equal the plain kernels'."""
+    emd = importlib.import_module("patchaugnet_tpu_torch.ops.emd")
+    x1, x2 = _cloud(rng, 2, 512, device), _cloud(rng, 2, 512, device)
+    tail = []
+
+    def spy(neg_base, price, k, rows=None):
+        tail.append(rows is not None)
+        return ops.topk_extract_price(neg_base, price, k, rows)
+
+    monkeypatch.setattr(emd, "topk_extract_price", spy)
+    before = topk_ops.price_launches
+    dist, assignment = ops.auction_emd(x1, x2, 0.02, 200)
+    assert topk_ops.price_launches - before == emd.iterations + 1 == len(tail)
+    assert any(tail) and not tail[0]
+    monkeypatch.setattr(topk_ops, "_topk_extract_price_cuda", topk_ops._topk_extract_price_torch)
+    plain_dist, plain_assignment = ops.auction_emd(x1, x2, 0.02, 200)
+    assert torch.equal(assignment, plain_assignment) and torch.equal(dist, plain_dist)
 
 
 def test_pair_runs_topk_kernel(device, rng):

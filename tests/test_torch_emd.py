@@ -77,6 +77,37 @@ def test_price_extraction_matches_jax(rng, k):
     np.testing.assert_array_equal(_np(rv), gv.numpy())
 
 
+def _row_ids(rng, n):
+    """(2, 64) int64 ids into n rows: ascending ids then the sentinel n,
+    as the auction's active set packs them; and unsorted ids with repeats,
+    several sentinels and the last row itself."""
+    packed = np.full(64, n)
+    packed[:40] = np.sort(rng.choice(n, 40, replace=False))
+    mixed = rng.randint(0, n + 1, 64)
+    mixed[::7] = mixed[3]
+    mixed[5:9] = n
+    mixed[10] = n - 1
+    return np.stack([packed, mixed]).astype(np.int64)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_price_extraction_rows_match_jax(rng, k):
+    """K6 through row ids (the active-set tail): the JAX active step's
+    clamp, ``take_along_axis`` and ``topk_extract_price_pallas`` on 64 of
+    512 rows, with tied base columns and prices."""
+    base = (rng.rand(2, 512, 512).astype(np.float32) - 0.5) * 4
+    base[:, :, ::5] = base[:, :, 1:2]
+    price = rng.rand(2, 512).astype(np.float32) * 2
+    price[:, 100:140] = price[:, 99:100]
+    ids = _row_ids(rng, 512)
+    gi, gv = ops.topk_extract_price(_t(base), _t(price), k, _t(ids))
+    assert gi.dtype == torch.int32 and gi.shape == (2, 64, k)
+    rows_g = jnp.take_along_axis(jnp.asarray(base), jnp.minimum(jnp.asarray(ids), 511)[..., None], axis=1)
+    ri, rv = topk_extract_price_pallas(rows_g, jnp.asarray(price), k, query_block=64, interpret=True)
+    np.testing.assert_array_equal(_np(ri), gi.numpy())
+    np.testing.assert_array_equal(_np(rv), gv.numpy())
+
+
 @pytest.mark.parametrize("shape,k,num_chunks", [((2, 64, 240), 9, 4), ((2, 64, 240), 9, None),
                                                 ((1, 32, 40), 20, None)])
 def test_chunked_extraction_matches_jax(rng, shape, k, num_chunks):
@@ -165,6 +196,8 @@ def test_auction_bad_inputs_raise():
         ops.auction_emd(torch.zeros(1, 12, 3), torch.zeros(1, 12, 3), row_chunk=5)
     with pytest.raises(ValueError, match="price"):
         ops.topk_extract_price(torch.zeros(2, 4, 6), torch.zeros(2, 5), 2)
+    with pytest.raises(ValueError, match="rows"):
+        ops.topk_extract_price(torch.zeros(2, 4, 6), torch.zeros(2, 6), 2, torch.zeros(2, 3, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("name", ["chamfer_l1", "chamfer_l2", "chamfer_l2_split"])

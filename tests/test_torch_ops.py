@@ -112,6 +112,32 @@ def test_fps_layout_rule():
     assert [fps.layout_for(n) for n in (4096, 1024, 128)] == [(512, 8), (1024, 1), (32, 4)]
 
 
+def test_warps_rule():
+    """The top-k kernel's warps per row on a 132-SM card at the shapes of
+    its paths (PERF.md): 4 for the auction's active-set tail, 2 for K4 at
+    n=16384, b=4, and 1 for K4's 4096 rows of 8192, the full price-fused
+    sweep and K3's matrices; always a count the kernel is built for, never
+    more for more rows."""
+    topk = importlib.import_module("patchaugnet_tpu_torch.ops.topk")
+    shapes = {(4 * 256, 4096): 4, (4 * 4096, 4096): 1, (4096, 8192): 1, (4 * 512, 16384): 2,
+              (32 * 4096, 1024): 1, (32 * 1024, 128): 1, (32 * 128, 16): 1}
+    assert {shape: topk.warps_for(*shape, 132) for shape in shapes} == shapes
+    for n in (16, 700, 4096, 65536):
+        picks = [topk.warps_for(rows, n, 132) for rows in (1, 64, 1024, 4096, 16384, 1 << 20)]
+        assert set(picks) <= set(topk.WARPS) and picks == sorted(picks, reverse=True)
+
+
+def test_price_rows_clamp_ids_into_range(rng):
+    """K6 through row ids: every id is clamped into [0, m - 1], the
+    sentinel m and larger ids to the last row, negative ids to the first."""
+    base = torch.from_numpy(rng.rand(2, 6, 16).astype(np.float32))
+    price = torch.from_numpy(rng.rand(2, 16).astype(np.float32))
+    rows = torch.tensor([[-1, 6, 2, 9], [0, -7, 5, 6]])
+    got = ops.topk_extract_price(base, price, 3, rows)
+    want = ops.topk_extract_price(base, price, 3, torch.tensor([[0, 5, 2, 5], [0, 0, 5, 5]]))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 class TestKNN:
     @pytest.mark.parametrize("b,n,m,k", [(2, 256, 128, 8), (1, 300, 64, 20), (3, 128, 16, 20)])
     def test_random_matches_fused_kernel(self, rng, b, n, m, k):
