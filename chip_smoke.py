@@ -44,7 +44,20 @@ Phases, each fatal on failure:
    (1, 8192) that must launch K4 twice per sweep, once per 4096-row chunk
    (``profile_torch.py --emd`` breaks the exact call down by device
    kernel);
-5. report: one ``{"kernels": [...]}`` line, the card's name and power
+5. train: the full-width PatchAugNet with its patch branch and decoder
+   (``configs.PATCH_AUG_NET_TRAIN``, seeded random weights, Adam at
+   5e-4) through ``train.create_train_state``, ``train.build_center_fn``
+   and ``train.build_train_step`` on one tuple batch of 4 x 18 = 72
+   seeded random clouds of 4096 points, the 12 query and positive clouds
+   in the patch branch, and seeded correspondence tables of 2048 rows and
+   16 pairs; the centres must launch K1 once and each step K1 3 times and
+   K2 6 times and no other kernel; one step from a copy of the state run
+   through the plain versions on the card must give the same provenance
+   indices, and metrics and new BatchNorm statistics within 1e-6; every
+   loss term finite and positive, parameters and statistics changed and
+   finite; then ms per step, clouds/s and peak device memory over 10
+   steps after 3 warm-up steps;
+6. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -52,6 +65,7 @@ It exits non-zero, printing no result, without a CUDA device or without
 the rest of the repository. Imports nothing of JAX.
 """
 import contextlib
+import copy
 import importlib
 import json
 import os
@@ -77,6 +91,12 @@ EMD_TAIL_VALID = (256, 240, 224, 208)                   # unassigned rows per cl
 TAIL_ID_SETS = 8                # tail ids taken in turn: a call's rows were last read ~105 MB of rows ago (L2: 50 MB)
 SLEEP_CYCLES = 50_000_000       # holds the stream while the host queues a timed run (25 ms at 2 GHz)
 CHUNKED_N, CHUNKED_ITERS = 8192, 20                     # a row-chunked auction, K4 on its path
+# the train step (configs/patch_aug_net.yaml): K1 at the three SA levels,
+# K2 at the three SA and the three FP levels, per step; K1 once more for
+# the host's patch centres
+STEP_LAUNCHES = {"fps": 3, "knn": 6}
+CENTER_LAUNCHES = {"fps": 1}
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 
 
 def say(*parts):
@@ -706,6 +726,147 @@ def phase_emd(torch, ops, mods, records, dev):
     return counts, chunked_counts
 
 
+def train_batch(torch, cfg, dev, seed):
+    """One tuple batch for ``cfg`` drawn from a numpy generator: (B*T, N, 3)
+    uniform clouds, the mask of the query and positive clouds, and
+    correspondence tables of ``A2B_MAX_ROWS`` rows over the (query,
+    positive) pairs with patch slots in [0, SAMPLING[0]), about half the
+    rows valid and the last pair with none (the tables the data engine
+    builds from overlap records are not ported)."""
+    import numpy as np
+    from patchaugnet_tpu_torch.losses import PatchCorrespondences
+
+    rng = np.random.default_rng(seed)
+    b, p = cfg["TRAIN_BATCH_SIZE"], cfg["TRAIN_POSITIVES_PER_QUERY"]
+    t = 1 + p + cfg["TRAIN_NEGATIVES_PER_QUERY"] + 1
+    clouds = torch.from_numpy(rng.random((b * t, cfg["NUM_POINTS"], 3), dtype=np.float32)).to(dev)
+    mask = np.zeros(b * t, bool)
+    for q in range(b):
+        mask[q * t: q * t + 1 + p] = True
+    rows, pairs = cfg["A2B_MAX_ROWS"], b * p
+    pair = rng.integers(0, pairs, rows, dtype=np.int32)
+    q_cloud = (t * (pair // p)).astype(np.int32)
+    n_cloud = (q_cloud + 1 + pair % p).astype(np.int32)
+    slots = [rng.integers(0, cfg["SAMPLING"][0], rows, dtype=np.int32) for _ in range(3)]
+    valid = (rng.random(rows) < 0.5) & (pair != pairs - 1)
+    corr = PatchCorrespondences(*(torch.from_numpy(a).to(dev) for a in (q_cloud, n_cloud, *slots, pair, valid)),
+                                cfg["A2B_MAX_PAIRS"])
+    return clouds, torch.from_numpy(mask).to(dev), corr
+
+
+def check_train_shapes(torch, mods, dev, cfg):
+    """K1 at the three SA levels and K2 at the six kNN cases of the train
+    step's batch, bit-equal to their plain versions (the lanes rule takes
+    the batch: SA1 runs 8 lanes per query at 72 clouds, 32 at 32)."""
+    from patchaugnet_tpu_torch import ops
+
+    fps, knn = mods["fps"], mods["knn"]
+    batch = cfg["TRAIN_BATCH_SIZE"] * (cfg["TRAIN_POSITIVES_PER_QUERY"] + cfg["TRAIN_NEGATIVES_PER_QUERY"] + 2)
+    x = level_clouds(torch, ops, fps._farthest_point_sample_torch, torch.Generator(device=dev).manual_seed(7), batch)
+    for level in range(3):
+        if not torch.equal(ops.farthest_point_sample(x[level], x[level + 1].shape[1]),
+                           fps._farthest_point_sample_torch(x[level], x[level + 1].shape[1])):
+            raise AssertionError(f"fps SA{level} B={batch}: kernel indices differ from the plain version")
+    lanes = []
+    for label, pts, qry, k in knn_cases(x):
+        check_equal(torch, f"knn {label} B={batch}", ops.knn(pts, qry, k), knn._knn_torch(pts, qry, k))
+        lanes.append(f"{label} {knn.lanes_for(batch, pts.shape[1], qry.shape[1], k, mods['cuda'].sm_count(dev))}")
+    say(f"K1 and K2 at the train step's batch B={batch}: bit-equal to the plain versions at the three SA levels "
+        f"and the six kNN cases (lanes per query: {', '.join(lanes)})")
+
+
+def phase_train(torch, mods, records, dev):
+    """The flagship train step at full width through the port's entry points."""
+    from patchaugnet_tpu_torch import configs, train
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    cfg = configs.PATCH_AUG_NET_TRAIN
+    check_train_shapes(torch, mods, dev, cfg)
+    model = seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(5))
+    state = train.create_train_state(model, cfg, device=dev)
+    plain_state = copy.deepcopy(state)
+    clouds, mask, corr = train_batch(torch, cfg, dev, seed=6)
+    total = clouds.shape[0]
+    center_fn = train.build_center_fn(cfg["SAMPLING"][0], device=dev)
+    step = train.build_train_step(state.model, cfg)
+
+    reset_counts(mods, records)
+    centers = center_fn(clouds)
+    torch.cuda.synchronize()
+    center_counts = read_counts(mods, records)
+    check_launches(center_counts, CENTER_LAUNCHES, "build_center_fn")
+
+    outs = []
+    hooks = [s.model.register_forward_hook(lambda mod, args, out: outs.append(out))
+             for s in (state, plain_state)]
+    params_before = [p.detach().clone() for p in state.model.parameters()]
+    stats_before = [b.clone() for b in state.model.buffers()]
+    reset_counts(mods, records)
+    t0 = time.perf_counter()
+    state, metrics = step(state, clouds, corr, mask)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    step_counts = read_counts(mods, records)
+    check_launches(step_counts, STEP_LAUNCHES, "train step")
+
+    with plain_kernels(mods):
+        before = read_counts(mods, records)
+        plain_state, plain_metrics = train.build_train_step(plain_state.model, cfg)(
+            plain_state, clouds, corr, mask)
+        torch.cuda.synchronize()
+        if read_counts(mods, records) != before:
+            raise AssertionError("the plain train step launched a kernel")
+    for h in hooks:
+        h.remove()
+    ref, plain = outs
+    for name in ("center_idx_origin", "sample_idx_origin"):
+        for level, (a, b) in enumerate(zip(getattr(ref, name), getattr(plain, name))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"train step {name}[{level}]: kernel path differs from the plain path")
+    if not torch.equal(centers, ref.center_idx_origin[0]):
+        raise AssertionError("build_center_fn: centres differ from the forward's level-1 centres")
+    errs = {k: abs(metrics[k].item() - v.item()) / abs(v.item()) for k, v in plain_metrics.items()}
+    stats_err = max((a - b).abs().max().item() for a, b in zip(state.model.buffers(), plain_state.model.buffers()))
+    if max(errs.values()) > 1e-6 or stats_err > 1e-6:
+        raise AssertionError(f"train step: metrics {errs} or BN statistics (max abs err {stats_err}) differ "
+                             f"from the plain-kernel run")
+    for key, value in metrics.items():
+        if not (torch.isfinite(value) and value.item() > 0):
+            raise AssertionError(f"train step: {key} = {value.item()} is not finite and positive")
+    if all(torch.equal(a, b) for a, b in zip(params_before, state.model.parameters())):
+        raise AssertionError("train step: no parameter changed")
+    if any(torch.equal(a, b) for a, b in zip(stats_before, state.model.buffers())):
+        raise AssertionError("train step: a BatchNorm statistic did not change")
+    if not all(torch.isfinite(p).all() for p in state.model.parameters()):
+        raise AssertionError("train step: a parameter is not finite")
+    say(f"train: provenance indices equal to the plain path, centres equal to the forward's; metrics "
+        f"max rel err {max(errs.values()):.3g}, BN statistics max abs err {stats_err:.3g}; "
+        f"launches: centres {center_counts}, step {step_counts}")
+    del plain_state, outs, ref, plain
+
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = step(state, clouds, corr, mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, clouds, corr, mask)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    last = {k: round(v.item(), 6) for k, v in metrics.items()}
+    if not all(torch.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"train step: non-finite metrics {last}")
+    measured(f"train step, {total} clouds x {cfg['NUM_POINTS']} points ({cfg['TRAIN_BATCH_SIZE']} x "
+             f"{total // cfg['TRAIN_BATCH_SIZE']}), patch branch on {int(mask.sum())} clouds, "
+             f"{cfg['A2B_MAX_ROWS']} a2b rows",
+             f"{sec * 1e3:.2f} ms per step ({TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up; first step "
+             f"{first_ms:.2f} ms), {total / sec:.1f} clouds/s, peak memory {peak:.2f} GiB, "
+             f"step {state.step} metrics {last}")
+    return center_counts, step_counts
+
+
 def main():
     global CARD
     import torch
@@ -729,11 +890,13 @@ def main():
     records = phase_kernels(torch, ops, mods, dev) + phase_emd_kernels(torch, ops, mods, dev)
     serving_counts = phase_serving(torch, mods, records, dev)
     emd_counts, chunked_counts = phase_emd(torch, ops, mods, records, dev)
+    center_counts, step_counts = phase_train(torch, mods, records, dev)
 
     # each kernel's launches on its paths: K1-K3 serving, K6 emd_loss, K4
-    # the row-chunked auction (each run counts only its own kernels)
-    launches = {name: serving_counts[name] + emd_counts[name] + chunked_counts[name]
-                for name in serving_counts}
+    # the row-chunked auction, K1 and K2 the train step and its centres
+    # (each run counts only its own kernels)
+    paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts)
+    launches = {name: sum(counts[name] for counts in paths) for name in serving_counts}
     # K5 (``topk_extract_pair``) is K3's function by K3's kernel, on no path
     # (the JAX package dispatches it nowhere): its line repeats K3's times
     k3 = next(r for r in records if r.name == "topk_extract")

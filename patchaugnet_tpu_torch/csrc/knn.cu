@@ -4,7 +4,7 @@
 // _fused_knn_kernel + _extract_sweeps). Semantics: d^2 formed as
 // ops/pairwise.py forms it, with its clamp at 0; the k smallest per query in
 // ascending (d^2, index) order, the lowest candidate index among equal
-// distances; any n, 1 <= k <= min(n, 32).
+// distances; any b, any n, any 1 <= k <= n.
 //
 // Bound on the H100: f32 operations. Every (query, candidate) pair costs a
 // distance (3 sub, 3 mul, 2 add) and a compare against the current k-th,
@@ -53,6 +53,14 @@
 // The list thus holds the k smallest (d^2, index) pairs in ascending order,
 // the lowest index on ties. The scan streams the tiles, so there is no tile
 // limit on n as on the TPU.
+// - A list holds G * P <= 96 entries (P <= kMaxSlots). A larger k runs at
+//   G = 32, P = 3 in passes over the candidates, all in the one launch: pass
+//   p extracts the next 96 (or what is left of k) among the pairs that
+//   follow the previous pass's last (d^2, index) pair in that order, a
+//   strict total order, so the passes together give the k smallest exactly.
+// - The grid's second axis is the cloud; a batch of more than 65535 clouds
+//   launches once per 65535 (one grid of one flat axis was 8% slower at
+//   the FP0 3-NN on an H100).
 #include "common.cuh"
 
 namespace {
@@ -130,26 +138,21 @@ __device__ __forceinline__ void merge(bool acc, unsigned d, int ci, unsigned (&l
     }
 }
 
-template <int G, int P>
-__global__ void __launch_bounds__(kThreads)
-knn_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
-           int* __restrict__ idx, float* __restrict__ d2, int n, int m, int k) {
-    constexpr int kQueries = kThreads / G;
-    __shared__ float4 s_pts[kTile];
-    const int b = blockIdx.y;
-    const int gl = threadIdx.x % G;                       // lane within the group
-    const int q = blockIdx.x * kQueries + threadIdx.x / G;
-    const bool active = q < m;
-    const float* pts = xyz + static_cast<size_t>(b) * n * 3;
+// (d, ci) after (lo_v, lo_i) in the (d^2, index) order; d and lo_v as bits
+__device__ __forceinline__ bool after(unsigned d, int ci, unsigned lo_v, int lo_i) {
+    return d > lo_v || (d == lo_v && ci > lo_i);
+}
 
-    // a group past the last query sees only NaN distances and takes nothing
-    float qx = __int_as_float(0x7fffffff), qy = qx, qz = qx;
-    if (active) {
-        const float* qp = new_xyz + (static_cast<size_t>(b) * m + q) * 3;
-        qx = qp[0];
-        qy = qp[1];
-        qz = qp[2];
-    }
+// One pass: the kp smallest (d^2, index) pairs of the cloud's candidates
+// for this lane's query, after (lo_v, lo_i) where kPasses, written at
+// positions off .. off + kp - 1 of the query's output row o; (lo_v, lo_i)
+// becomes the pass's last pair.
+template <int G, int P, bool kPasses>
+__device__ __forceinline__ void knn_pass(const float* __restrict__ pts, float qx, float qy,
+                                         float qz, int gl, bool active, size_t o,
+                                         int* __restrict__ idx, float* __restrict__ d2, int n,
+                                         int off, int kp, unsigned& lo_v, int& lo_i) {
+    __shared__ float4 s_pts[kTile];
     unsigned lv[P];
     int li[P];
 #pragma unroll
@@ -157,8 +160,8 @@ knn_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
         lv[j] = kEmpty;
         li[j] = INT_MAX;
     }
-    // the list's entry k - 1 (lane t_lane, slot t_slot) is the threshold
-    const int t_lane = (k - 1) / P, t_slot = (k - 1) % P;
+    // the list's entry kp - 1 (lane t_lane, slot t_slot) is the threshold
+    const int t_lane = (kp - 1) / P, t_slot = (kp - 1) % P;
     unsigned tv = kEmpty;
 
     for (int base = 0; base < n; base += kTile) {
@@ -176,6 +179,9 @@ knn_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
             for (int u = 0; u < kUnroll; ++u) {
                 const float4 p = s_pts[gl + (t + u) * G];
                 d[u] = __float_as_uint(pan::sqdist3(qx, qy, qz, p.x, p.y, p.z));
+                if constexpr (kPasses) {
+                    if (!after(d[u], base + gl + (t + u) * G, lo_v, lo_i)) d[u] = ~0u;
+                }
                 least = min(least, d[u]);
             }
             if (__any_sync(kFull, least < tv)) {
@@ -192,44 +198,91 @@ knn_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
             if (c < cnt) {
                 const float4 p = s_pts[c];
                 d = __float_as_uint(pan::sqdist3(qx, qy, qz, p.x, p.y, p.z));
+                if constexpr (kPasses) {
+                    if (!after(d, base + c, lo_v, lo_i)) d = ~0u;
+                }
             }
             merge<G, P>(d < tv, d, base + c, lv, li, tv, gl, t_lane, t_slot);
         }
     }
     if (active) {
-        const size_t o = (static_cast<size_t>(b) * m + q) * k;
 #pragma unroll
         for (int j = 0; j < P; ++j) {
             const int pos = gl * P + j;
-            if (pos < k) {
-                idx[o + pos] = li[j];
-                d2[o + pos] = __uint_as_float(lv[j]);
+            if (pos < kp) {
+                idx[o + off + pos] = li[j];
+                d2[o + off + pos] = __uint_as_float(lv[j]);
             }
         }
     }
+    if constexpr (kPasses) {   // the pass's last pair bounds the next pass
+        int si = li[0];
+#pragma unroll
+        for (int j = 1; j < P; ++j) si = t_slot == j ? li[j] : si;
+        lo_v = tv;
+        lo_i = __shfl_sync(kFull, si, t_lane, G);
+    }
 }
 
-template <int G, int P>
+template <int G, int P, bool kPasses>
+__global__ void __launch_bounds__(kThreads)
+knn_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
+           int* __restrict__ idx, float* __restrict__ d2, int n, int m, int k) {
+    constexpr int kQueries = kThreads / G;
+    const int b = blockIdx.y;
+    const int gl = threadIdx.x % G;                       // lane within the group
+    const int q = blockIdx.x * kQueries + threadIdx.x / G;
+    const bool active = q < m;
+    const float* pts = xyz + static_cast<size_t>(b) * n * 3;
+
+    // a group past the last query sees only NaN distances and takes nothing
+    float qx = __int_as_float(0x7fffffff), qy = qx, qz = qx;
+    if (active) {
+        const float* qp = new_xyz + (static_cast<size_t>(b) * m + q) * 3;
+        qx = qp[0];
+        qy = qp[1];
+        qz = qp[2];
+    }
+    const size_t o = (static_cast<size_t>(b) * m + q) * k;
+    // the previous pass's last pair; the first pass takes every candidate
+    unsigned lo_v = 0u;
+    int lo_i = -1;
+    if constexpr (kPasses) {
+        for (int off = 0; off < k; off += G * P) {
+            knn_pass<G, P, true>(pts, qx, qy, qz, gl, active, o, idx, d2, n, off,
+                                 min(k - off, G * P), lo_v, lo_i);
+        }
+    } else {
+        knn_pass<G, P, false>(pts, qx, qy, qz, gl, active, o, idx, d2, n, 0, k, lo_v, lo_i);
+    }
+}
+
+template <int G, int P, bool kPasses>
 void launch(const float* xyz, const float* new_xyz, int* idx, float* d2, int b, int n, int m,
             int k, cudaStream_t st) {
     constexpr int kQueries = kThreads / G;
-    const dim3 grid((m + kQueries - 1) / kQueries, b);
-    knn_kernel<G, P><<<grid, kThreads, 0, st>>>(xyz, new_xyz, idx, d2, n, m, k);
+    for (int b0 = 0; b0 < b; b0 += 65535) {   // a grid's second axis takes 65535 clouds
+        const dim3 grid((m + kQueries - 1) / kQueries, min(b - b0, 65535));
+        const size_t cloud = static_cast<size_t>(b0);
+        knn_kernel<G, P, kPasses><<<grid, kThreads, 0, st>>>(
+            xyz + cloud * n * 3, new_xyz + cloud * m * 3, idx + cloud * m * k, d2 + cloud * m * k,
+            n, m, k);
+    }
 }
 
-// The list holds G * P >= k entries: P = ceil(k / G) slots per lane, at most
-// kMaxSlots (ops/knn.py's _MAX_SLOTS, which its lanes rule keeps to), and at
-// most 32 / G since k <= 32.
+// The list holds G * P entries, P = ceil(k / G) slots per lane, at most
+// kMaxSlots (ops/knn.py's _MAX_SLOTS, which its lanes rule keeps to); a k
+// beyond 32 * kMaxSlots runs in passes at G = 32.
 constexpr int kMaxSlots = 3;
 
 template <int G, int P>
 int dispatch(int p, const float* x, const float* q, int* oi, float* od, int b, int n, int m,
              int k, cudaStream_t st) {
     if (p == P) {
-        launch<G, P>(x, q, oi, od, b, n, m, k, st);
+        launch<G, P, false>(x, q, oi, od, b, n, m, k, st);
         return static_cast<int>(cudaGetLastError());
     }
-    if constexpr (P < kMaxSlots && P < 32 / G) {
+    if constexpr (P < kMaxSlots) {
         return dispatch<G, P + 1>(p, x, q, oi, od, b, n, m, k, st);
     } else {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -239,8 +292,8 @@ int dispatch(int p, const float* x, const float* q, int* oi, float* od, int b, i
 }  // namespace
 
 // xyz: (b, n, 3), new_xyz: (b, m, 3) f32 contiguous; idx: (b, m, k) i32 and
-// d2: (b, m, k) f32 outputs. 1 <= k <= min(n, 32); lanes (G) in {4, 8, 16, 32}
-// with ceil(k / G) <= kMaxSlots.
+// d2: (b, m, k) f32 outputs. 1 <= k <= n; lanes (G) in {4, 8, 16, 32} with
+// ceil(k / G) <= kMaxSlots, or G = 32 at any k (passes of 96); any b.
 extern "C" int pan_knn(const void* xyz, const void* new_xyz, void* idx, void* d2, int b, int n,
                        int m, int k, int lanes, void* stream) {
     const float* x = static_cast<const float*>(xyz);
@@ -248,12 +301,17 @@ extern "C" int pan_knn(const void* xyz, const void* new_xyz, void* idx, void* d2
     int* oi = static_cast<int*>(idx);
     float* od = static_cast<float*>(d2);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (k < 1 || k > 32) return static_cast<int>(cudaErrorInvalidValue);
+    if (k < 1 || k > n) return static_cast<int>(cudaErrorInvalidValue);
     switch (lanes) {
         case 4: return dispatch<4, 1>((k + 3) / 4, x, q, oi, od, b, n, m, k, st);
         case 8: return dispatch<8, 1>((k + 7) / 8, x, q, oi, od, b, n, m, k, st);
         case 16: return dispatch<16, 1>((k + 15) / 16, x, q, oi, od, b, n, m, k, st);
-        case 32: return dispatch<32, 1>((k + 31) / 32, x, q, oi, od, b, n, m, k, st);
+        case 32:
+            if (k > 32 * kMaxSlots) {
+                launch<32, kMaxSlots, true>(x, q, oi, od, b, n, m, k, st);
+                return static_cast<int>(cudaGetLastError());
+            }
+            return dispatch<32, 1>((k + 31) / 32, x, q, oi, od, b, n, m, k, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

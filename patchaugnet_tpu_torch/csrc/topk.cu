@@ -46,6 +46,11 @@
 // plain version's result bit for bit. A warp whose chunk holds fewer than k
 // columns (n / S < k, or the short last chunk) yields (+inf, INT_MAX) for
 // its missing picks, which the merge never takes over a real column.
+//
+// A k beyond the largest list (32) runs in passes, all in the one launch:
+// pass p extracts the next 32 (or what is left of k) among the pairs that
+// follow the previous pass's last (value, index) pair in that order, so the
+// passes together give the k smallest exactly, each reading the row again.
 #include "common.cuh"
 
 namespace {
@@ -53,14 +58,30 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;  // a block holds 8 / S rows
 
+// A pass takes only the pairs after (v, i), the previous pass's last.
+struct Bound {
+    float v;
+    int i;
+};
+
+template <int K, bool kPasses>
+__device__ __forceinline__ void take(const Bound& lo, float (&bd)[K], int (&bi)[K], float v,
+                                     int j) {
+    if constexpr (kPasses) {
+        if (!pan::lex_less(lo.v, lo.i, v, j)) return;
+    }
+    pan::offer<K>(bd, bi, v, j);
+}
+
 // Offers columns [begin, end) of row r (plus price row p where kPrice) to
 // the lane's list, with D 16-byte loads in flight per lane where the chunk
 // is 16-byte aligned and gives each lane four float4s or more; narrower
 // chunks keep every lane busy with 4-byte loads (on an H100, float4s cost
 // the FP levels' 128- and 16-wide rows 8-28% in device time).
-template <int K, bool kPrice, int D>
+template <int K, bool kPrice, int D, bool kPasses>
 __device__ __forceinline__ void scan(const float* __restrict__ r, const float* __restrict__ p,
-                                     int begin, int end, int lane, float (&bd)[K], int (&bi)[K]) {
+                                     int begin, int end, int lane, const Bound& lo, float (&bd)[K],
+                                     int (&bi)[K]) {
     uintptr_t addr = reinterpret_cast<uintptr_t>(r + begin);
     if constexpr (kPrice) addr |= reinterpret_cast<uintptr_t>(p + begin);
     if ((addr & 15) == 0 && end - begin >= 4 * 4 * 32) {  // the same for every lane of the warp
@@ -84,10 +105,10 @@ __device__ __forceinline__ void scan(const float* __restrict__ r, const float* _
 #pragma unroll
             for (int u = 0; u < D; ++u) {
                 const int j = begin + 4 * (q + 32 * u);
-                pan::offer<K>(bd, bi, a[u].x, j);
-                pan::offer<K>(bd, bi, a[u].y, j + 1);
-                pan::offer<K>(bd, bi, a[u].z, j + 2);
-                pan::offer<K>(bd, bi, a[u].w, j + 3);
+                take<K, kPasses>(lo, bd, bi, a[u].x, j);
+                take<K, kPasses>(lo, bd, bi, a[u].y, j + 1);
+                take<K, kPasses>(lo, bd, bi, a[u].z, j + 2);
+                take<K, kPasses>(lo, bd, bi, a[u].w, j + 3);
             }
         }
         for (; q < nv; q += 32) {
@@ -98,16 +119,16 @@ __device__ __forceinline__ void scan(const float* __restrict__ r, const float* _
                                 __fadd_rn(a.w, pa.w));
             }
             const int j = begin + 4 * q;
-            pan::offer<K>(bd, bi, a.x, j);
-            pan::offer<K>(bd, bi, a.y, j + 1);
-            pan::offer<K>(bd, bi, a.z, j + 2);
-            pan::offer<K>(bd, bi, a.w, j + 3);
+            take<K, kPasses>(lo, bd, bi, a.x, j);
+            take<K, kPasses>(lo, bd, bi, a.y, j + 1);
+            take<K, kPasses>(lo, bd, bi, a.z, j + 2);
+            take<K, kPasses>(lo, bd, bi, a.w, j + 3);
         }
         const int j = begin + 4 * nv + lane;  // the chunk's last (end - begin) % 4 columns
         if (j < end) {
             float v = __ldg(r + j);
             if constexpr (kPrice) v = __fadd_rn(v, __ldg(p + j));
-            pan::offer<K>(bd, bi, v, j);
+            take<K, kPasses>(lo, bd, bi, v, j);
         }
         return;
     }
@@ -123,15 +144,15 @@ __device__ __forceinline__ void scan(const float* __restrict__ r, const float* _
             v2 = __fadd_rn(v2, __ldg(p + j + 64));
             v3 = __fadd_rn(v3, __ldg(p + j + 96));
         }
-        pan::offer<K>(bd, bi, v0, j);
-        pan::offer<K>(bd, bi, v1, j + 32);
-        pan::offer<K>(bd, bi, v2, j + 64);
-        pan::offer<K>(bd, bi, v3, j + 96);
+        take<K, kPasses>(lo, bd, bi, v0, j);
+        take<K, kPasses>(lo, bd, bi, v1, j + 32);
+        take<K, kPasses>(lo, bd, bi, v2, j + 64);
+        take<K, kPasses>(lo, bd, bi, v3, j + 96);
     }
     for (; j < end; j += 32) {
         float v = __ldg(r + j);
         if constexpr (kPrice) v = __fadd_rn(v, __ldg(p + j));
-        pan::offer<K>(bd, bi, v, j);
+        take<K, kPasses>(lo, bd, bi, v, j);
     }
 }
 
@@ -173,15 +194,16 @@ __device__ __forceinline__ void pop_min(float (&bd)[K], int (&bi)[K], float& v, 
     }
 }
 
-// Output row `row` (of `rows`) reads source row `row`, or with kRowIds
-// source row e * m + clamp(ids[e, row % r], 0, m - 1) of batch element
-// e = row / r; the price row is that of the output row's batch element
-// (row / m, or with kRowIds row / r).
-template <int K, bool kPrice, bool kRowIds, int S>
-__global__ void __launch_bounds__(kThreads)
-topk_kernel(const float* __restrict__ src, const float* __restrict__ price,
-            const long long* __restrict__ ids, long long ids_stride, int* __restrict__ idx,
-            float* __restrict__ val, long long rows, int m, int r, int n, int k) {
+// One pass over the kernel's rows: the kp smallest pairs of each (after
+// lo where kPasses), written at positions off .. off + kp - 1 of its output
+// row; lo becomes the pass's last pair.
+template <int K, bool kPrice, bool kRowIds, int S, bool kPasses>
+__device__ __forceinline__ void extract(const float* __restrict__ src,
+                                        const float* __restrict__ price,
+                                        const long long* __restrict__ ids, long long ids_stride,
+                                        int* __restrict__ idx, float* __restrict__ val,
+                                        long long rows, int m, int r, int n, int k, int off,
+                                        int kp, Bound& lo) {
     // 16-byte loads in flight per lane: one where a warp streams a whole row
     // (two cost K6's full sweep 2% on an H100, in registers and occupancy),
     // two where the row is split (four were no faster there, and spilled)
@@ -208,26 +230,29 @@ topk_kernel(const float* __restrict__ src, const float* __restrict__ price,
         // chunks of a multiple of 4 columns keep every chunk 16-byte aligned
         const int chunk = ((n + S - 1) / S + 3) & ~3;
         const int begin = min((warp % S) * chunk, n);
-        scan<K, kPrice, kLoads>(src + src_row * n, p, begin, min(begin + chunk, n), lane, bd, bi);
+        scan<K, kPrice, kLoads, kPasses>(src + src_row * n, p, begin, min(begin + chunk, n), lane,
+                                         lo, bd, bi);
     }
 
-    const size_t o = static_cast<size_t>(row) * k;
+    const size_t o = static_cast<size_t>(row) * k + off;
     float v;
     int i;
     if constexpr (S == 1) {
         if (!live) return;
-        for (int s = 0; s < k; ++s) {
+        for (int s = 0; s < kp; ++s) {
             pop_min<K>(bd, bi, v, i);
             if (lane == 0) {
                 idx[o + s] = i;
                 val[o + s] = v;
             }
         }
+        if constexpr (kPasses) lo = Bound{v, i};  // every lane holds the warp's last pick
     } else {
         __shared__ float sv[kWarps][K];
         __shared__ int si[kWarps][K];
+        __shared__ Bound s_lo[kWarps];
         if (live) {
-            for (int s = 0; s < k; ++s) {
+            for (int s = 0; s < kp; ++s) {
                 pop_min<K>(bd, bi, v, i);
                 if (lane == 0) {
                     sv[warp][s] = v;
@@ -236,18 +261,47 @@ topk_kernel(const float* __restrict__ src, const float* __restrict__ price,
             }
         }
         __syncthreads();
-        if (!live || warp % S != 0) return;
-        clear<K>(bd, bi);
-        for (int c = lane; c < S * k; c += 32) {
-            pan::offer<K>(bd, bi, sv[warp + c / k][c % k], si[warp + c / k][c % k]);
+        if (live && warp % S == 0) {
+            clear<K>(bd, bi);
+            for (int c = lane; c < S * kp; c += 32) {
+                pan::offer<K>(bd, bi, sv[warp + c / kp][c % kp], si[warp + c / kp][c % kp]);
+            }
+            for (int s = 0; s < kp; ++s) {
+                pop_min<K>(bd, bi, v, i);
+                if (lane == 0) {
+                    idx[o + s] = i;
+                    val[o + s] = v;
+                }
+            }
+            if (kPasses && lane == 0) s_lo[warp] = Bound{v, i};
         }
-        for (int s = 0; s < k; ++s) {
-            pop_min<K>(bd, bi, v, i);
-            if (lane == 0) {
-                idx[o + s] = i;
-                val[o + s] = v;
+        if constexpr (kPasses) {
+            if (off + kp < k) {  // another pass: uniform over the block
+                __syncthreads();
+                lo = s_lo[warp - warp % S];
             }
         }
+    }
+}
+
+// Output row `row` (of `rows`) reads source row `row`, or with kRowIds
+// source row e * m + clamp(ids[e, row % r], 0, m - 1) of batch element
+// e = row / r; the price row is that of the output row's batch element
+// (row / m, or with kRowIds row / r).
+template <int K, bool kPrice, bool kRowIds, int S, bool kPasses>
+__global__ void __launch_bounds__(kThreads)
+topk_kernel(const float* __restrict__ src, const float* __restrict__ price,
+            const long long* __restrict__ ids, long long ids_stride, int* __restrict__ idx,
+            float* __restrict__ val, long long rows, int m, int r, int n, int k) {
+    Bound lo{-pan::pos_inf(), -1};  // the first pass takes every pair
+    if constexpr (kPasses) {
+        for (int off = 0; off < k; off += K) {
+            extract<K, kPrice, kRowIds, S, true>(src, price, ids, ids_stride, idx, val, rows, m, r,
+                                                 n, k, off, min(k - off, K), lo);
+        }
+    } else {
+        extract<K, kPrice, kRowIds, S, false>(src, price, ids, ids_stride, idx, val, rows, m, r, n,
+                                              k, 0, k, lo);
     }
 }
 
@@ -262,26 +316,26 @@ struct Args {
     int m, r, n, k;
 };
 
-template <int K, bool kPrice, bool kRowIds, int S>
+template <int K, bool kPrice, bool kRowIds, int S, bool kPasses>
 void launch(const Args& a, cudaStream_t st) {
     const long long blocks = (a.rows + kWarps / S - 1) / (kWarps / S);
-    topk_kernel<K, kPrice, kRowIds, S><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+    topk_kernel<K, kPrice, kRowIds, S, kPasses><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
         a.src, a.price, a.ids, a.ids_stride, a.idx, a.val, a.rows, a.m, a.r, a.n, a.k);
 }
 
-template <int K, bool kPrice, bool kRowIds>
+template <int K, bool kPrice, bool kRowIds, bool kPasses = false>
 bool launch_warps(const Args& a, int warps, cudaStream_t st) {
     switch (warps) {
-        case 1: launch<K, kPrice, kRowIds, 1>(a, st); return true;
-        case 2: launch<K, kPrice, kRowIds, 2>(a, st); return true;
-        case 4: launch<K, kPrice, kRowIds, 4>(a, st); return true;
-        case 8: launch<K, kPrice, kRowIds, 8>(a, st); return true;
+        case 1: launch<K, kPrice, kRowIds, 1, kPasses>(a, st); return true;
+        case 2: launch<K, kPrice, kRowIds, 2, kPasses>(a, st); return true;
+        case 4: launch<K, kPrice, kRowIds, 4, kPasses>(a, st); return true;
+        case 8: launch<K, kPrice, kRowIds, 8, kPasses>(a, st); return true;
         default: return false;
     }
 }
 
-// The register list is sized to the smallest instantiation that holds k;
-// S must be one the build instantiates.
+// The register list is sized to the smallest instantiation that holds k, a
+// larger k runs in passes of 32; S must be one the build instantiates.
 template <bool kPrice, bool kRowIds>
 int dispatch(const Args& a, int warps, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -301,7 +355,7 @@ int dispatch(const Args& a, int warps, void* stream) {
     } else if (a.k <= 32) {
         ok = launch_warps<32, kPrice, kRowIds>(a, warps, st);
     } else {
-        ok = false;
+        ok = launch_warps<32, kPrice, kRowIds, true>(a, warps, st);
     }
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
@@ -310,7 +364,7 @@ int dispatch(const Args& a, int warps, void* stream) {
 }  // namespace
 
 // K3 and K4. dist: (rows, n) f32 contiguous; idx: (rows, k) i32 and val:
-// (rows, k) f32 outputs. 1 <= k <= min(n, 32); warps (S) in {1, 2, 4, 8}.
+// (rows, k) f32 outputs. 1 <= k <= n; warps (S) in {1, 2, 4, 8}.
 extern "C" int pan_topk_extract(const void* dist, void* idx, void* val, long long rows, int n,
                                 int k, int warps, void* stream) {
     const Args a{static_cast<const float*>(dist), nullptr, nullptr, 0, static_cast<int*>(idx),
@@ -320,7 +374,7 @@ extern "C" int pan_topk_extract(const void* dist, void* idx, void* val, long lon
 
 // K6. base: (b, m, n) f32 contiguous, rows = b * m; price: (b, n) f32
 // contiguous; idx: (rows, k) i32 and val: (rows, k) f32 outputs, the k
-// smallest of base[row] + price[row / m]. 1 <= k <= min(n, 32).
+// smallest of base[row] + price[row / m]. 1 <= k <= n.
 extern "C" int pan_topk_extract_price(const void* base, const void* price, void* idx, void* val,
                                       long long rows, int m, int n, int k, int warps,
                                       void* stream) {

@@ -1,24 +1,36 @@
-"""PatchAugNet descriptor forward (channels-last).
+"""PatchAugNet (channels-last).
 
-Port of ``patchaugnet_tpu/models/patch_aug_net.py`` for serving: three SA
-levels (FPS -> kNN -> EdgeConv group -> SharedMLP -> max-pool), index
-provenance back to the input cloud, three FP levels (3-NN interpolation
--> SharedMLP) and the spatial-pyramid NetVLAD head (APFA2 by default).
-The patch branch (``with_patches``, the PointNet decoder) comes with the
-train step; ``COMPUTE_DTYPE`` and ``KNN_APPROX_RECALL`` are not ported.
+Port of ``patchaugnet_tpu/models/patch_aug_net.py``: three SA levels
+(FPS -> kNN -> EdgeConv group -> SharedMLP -> max-pool), index provenance
+back to the input cloud, three FP levels (3-NN interpolation ->
+SharedMLP), the spatial-pyramid NetVLAD head (APFA2 by default), and the
+patch branch of the train step (``with_patches``): the level-1 origin
+patches, the L2-normalised patch features and, with a decoder, the
+reconstructed patches, for all clouds or for the ``patch_rows`` subset.
+``COMPUTE_DTYPE`` and ``KNN_APPROX_RECALL`` are not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from ..nn import SpatialPyramidNetVLAD
+from .. import ops
+from ..nn import PointNetDecoder, SpatialPyramidNetVLAD, l2_normalize
 from .backbone import PointNet2FPModule, PointNet2SAModule, index_provenance
 
 # SA output widths (reference patch_aug_net.py:124-132)
 SA_WIDTHS = ([32, 32, 64], [64, 64, 256], [256, 256, 512])
+
+
+class PatchData(NamedTuple):
+    """Per-cloud patch tensors (level-1 patches, one per SA0 centre)."""
+
+    center_indices: torch.Tensor        # (R, 1024) original-cloud centre indices
+    origin_patches: torch.Tensor        # (R, 1024, nsample, 3) raw grouped xyz
+    patch_features: torch.Tensor        # (R, 1024, 256) L2-normalised
+    reconstructed_patches: Optional[torch.Tensor]  # (R, 1024, nsample, 3)
 
 
 class PatchAugNetOutput(NamedTuple):
@@ -26,7 +38,7 @@ class PatchAugNetOutput(NamedTuple):
     fp_features: List[torch.Tensor]     # [(B,128,C), (B,1024,C), (B,4096,C)]
     center_idx_origin: List[torch.Tensor]
     sample_idx_origin: List[torch.Tensor]
-    patch_data: None = None
+    patch_data: Optional[PatchData] = None
 
 
 class PatchAugNet(nn.Module):
@@ -34,12 +46,19 @@ class PatchAugNet(nn.Module):
 
     ``param`` holds the model keys of ``configs/patch_aug_net.yaml``
     (``configs.PATCH_AUG_NET`` at full width). Submodule names follow the
-    JAX variable tree: ``sa{i}``, ``fp{i}``, ``aggregation``. The VLAD
-    weights start uninitialised: fill the model with
+    JAX variable tree: ``sa{i}``, ``fp{i}``, ``aggregation``, ``decoder``.
+    The VLAD weights start uninitialised: fill the model with
     ``compat.load_jax_variables`` or ``nn.seeded_init_``.
+
+    ``use_a2a_recon`` adds the patch decoder. A JAX model creates its
+    decoder only when it is initialised with patches, so the default
+    keeps none, and a model built for serving takes a JAX tree without
+    one; ``get_model`` passes the config's ``use_patch_recon``, as the JAX
+    factory does. The decoder is registered last, so ``nn.seeded_init_``
+    gives every other module the same values with or without it.
     """
 
-    def __init__(self, param: Dict[str, Any]):
+    def __init__(self, param: Dict[str, Any], use_a2a_recon: bool = False):
         super().__init__()
         for key in ("COMPUTE_DTYPE", "KNN_APPROX_RECALL"):
             if param.get(key) is not None:
@@ -63,10 +82,15 @@ class PatchAugNet(nn.Module):
             gating=param.get("GATING", False),
             aggregation_type=param.get("AGGREGATION_TYPE", 2),
         )
+        self.decoder = PointNetDecoder(fs[1], knn[0]) if use_a2a_recon else None
 
-    def forward(self, x: torch.Tensor, *, with_patches: bool = False) -> PatchAugNetOutput:
-        if with_patches:
-            raise NotImplementedError("the patch branch comes with the train step")
+    def forward(
+        self, x: torch.Tensor, *, with_patches: bool = False, patch_rows: Optional[torch.Tensor] = None
+    ) -> PatchAugNetOutput:
+        """``patch_rows``: optional ``(R,)`` integer ids of the clouds whose
+        patches the branch computes (the train step's queries and
+        positives); ``None`` takes every cloud. Ignored without
+        ``with_patches``."""
         if x.dim() == 4:
             x = x.squeeze(1)
         l_xyz, l_feats = [x], [x]
@@ -88,4 +112,20 @@ class PatchAugNet(nn.Module):
         # coarse -> fine, as the reference returns them: [128-pt, 1024-pt, 4096-pt]
         fp_features = [l_feats[2], l_feats[1], l_feats[0]]
         desc = self.aggregation(fp_features)
-        return PatchAugNetOutput(desc, fp_features, center_origin, sample_origin)
+        patch_data = None
+        if with_patches:
+            patch_data = self._patches(x, center_origin[0], sample_origin[0], fp_features[1], patch_rows)
+        return PatchAugNetOutput(desc, fp_features, center_origin, sample_origin, patch_data)
+
+    def _patches(self, xyz, center0, sample0, pf, patch_rows) -> PatchData:
+        """The level-1 patch branch (JAX ``patch_aug_net.py:153-176``)."""
+        if patch_rows is not None:
+            rows = patch_rows.to(torch.int64)
+            xyz, center0, sample0, pf = xyz[rows], center0[rows], sample0[rows], pf[rows]
+        origin_patches = ops.group(xyz, sample0)            # (R, 1024, k, 3)
+        pf = l2_normalize(pf, dim=-1)
+        recon = None
+        if self.decoder is not None:
+            r, m, c = pf.shape
+            recon = self.decoder(pf.reshape(r * m, c)).reshape(r, m, self.decoder.num_points, 3)
+        return PatchData(center0, origin_patches, pf, recon)

@@ -1,10 +1,12 @@
-"""Building blocks of the PatchAugNet descriptor forward (torch modules)."""
-from .core import BN_EPS, MLP, BatchNorm, SharedMLP, l2_normalize, seeded_init_
+"""Building blocks of PatchAugNet (torch modules)."""
+from .core import BN_EPS, BN_MOMENTUM, MLP, BatchNorm, SharedMLP, l2_normalize, seeded_init_
+from .pointnet import PointNetDecoder
 from .attention import AdaptiveFeatureAggregator, MLPAttention
 from .vlad import GatingContext, NetVLADBase, SpatialPyramidNetVLAD
 
 __all__ = [
     "BN_EPS",
+    "BN_MOMENTUM",
     "BatchNorm",
     "SharedMLP",
     "MLP",
@@ -15,4 +17,5 @@ __all__ = [
     "NetVLADBase",
     "GatingContext",
     "SpatialPyramidNetVLAD",
+    "PointNetDecoder",
 ]

@@ -15,15 +15,20 @@ import torch
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9   # flax's: running = 0.9 * running + 0.1 * batch (torch's momentum 0.1)
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the trailing axis, eval (running-average) mode only.
+    """BatchNorm over the trailing axis.
 
     Counterpart of ``batch_norm`` of the JAX package, with flax's
     arithmetic: ``(x - mean) * (rsqrt(var + eps) * weight) + bias``.
-    Parameter and buffer names are torch's. Train mode (batch statistics
-    and their running update) comes with the train step.
+    Parameter and buffer names are torch's. Eval mode normalises with the
+    running statistics. Train mode normalises with the batch statistics,
+    reduced over every leading axis as flax does (``use_fast_variance``:
+    ``var = max(mean(x^2) - mean(x)^2, 0)``, the biased variance), and
+    updates the running statistics in place:
+    ``running = BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch``.
     """
 
     def __init__(self, num_features: int):
@@ -34,10 +39,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("BatchNorm: only eval mode is ported; call .eval()")
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+            return (x - self.running_mean) * mul + self.bias
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(axes)
+        var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class SharedMLP(nn.Module):

@@ -13,6 +13,9 @@ distance and a compare per pair against a few MB of input). G lanes take
 a query (:func:`lanes_for` picks G per shape), candidates stream through
 shared memory, and the G lanes keep one sorted list of the query's best
 pairs between them, whose k-th entry rejects candidates for all of them.
+The list holds 96 pairs at the most; a larger k runs in passes of 96
+inside the kernel, and a batch of more than 65535 clouds in one launch
+per 65535.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 from . import contracts
 from .cuda import launch, sm_count
 from .pairwise import pairwise_sqdist
-from .topk import MAX_K, _topk_extract_torch, topk_extract
+from .topk import _topk_extract_torch, topk_extract
 
 # kernel launches so far; chip_smoke.py resets and reads it
 launches = 0
@@ -33,7 +36,6 @@ LANES = (4, 8, 16, 32)
 _MAX_SLOTS = 3         # list slots per lane, ceil(k / G), at the most (csrc/knn.cu's kMaxSlots)
 _WARPS_PER_SM = 16     # resident warps per SM that hide the scan's latency
 _MIN_SCAN = 2          # candidates per lane at the least
-_MAX_GRID_Y = 65535    # the launch's batch axis
 
 
 def lanes_for(b: int, n: int, m: int, k: int, sms: int) -> int:
@@ -42,12 +44,14 @@ def lanes_for(b: int, n: int, m: int, k: int, sms: int) -> int:
     ``_MAX_SLOTS`` slots or fewer (an insertion costs every lane its
     slots), doubled while the card holds fewer than ``_WARPS_PER_SM``
     warps per SM and each lane keeps ``_MIN_SCAN`` candidates or more.
+    A k past ``32 * _MAX_SLOTS`` takes 32 lanes, and the kernel runs it in
+    passes.
 
     On an H100 this picks 8 lanes at k=20 over 4096 candidates and 4 at
     k=3 over 1024 (the first SA and FP levels at B=32), and more lanes at
     the small levels, where 4 leave most of the card idle (PERF.md).
     """
-    g = next(g for g in LANES if -(-k // g) <= _MAX_SLOTS)
+    g = next((g for g in LANES if -(-k // g) <= _MAX_SLOTS), LANES[-1])
     while (g < LANES[-1] and b * m * g < 32 * _WARPS_PER_SM * sms
            and n >= _MIN_SCAN * 2 * g):
         g *= 2
@@ -72,6 +76,9 @@ def knn(
     Returns:
       ``(idx, sqdist)``: ``(b, m, k)`` int32 indices sorted by ascending
       distance, and the matching squared distances.
+
+    A CPU tensor runs the plain version. A CUDA tensor of 3-d points runs
+    the kernel at any shape; points of another width take the split path.
     """
     contracts.check_features(xyz, "xyz")
     if new_xyz is None:
@@ -91,22 +98,21 @@ def _knn_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel; ``lanes`` overrides :func:`lanes_for` (tests and tuning)."""
     global launches
-    if k > MAX_K:
-        raise ValueError(f"k={k}: the CUDA kNN kernel takes k <= {MAX_K}")
     if new_xyz.shape[-1] != 3:
         raise ValueError(f"new_xyz: expected (B, M, 3), got {tuple(new_xyz.shape)}")
     if new_xyz.device != xyz.device:
         raise ValueError(f"new_xyz on {new_xyz.device}, xyz on {xyz.device}")
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
-    if b > _MAX_GRID_Y or n >= 2**31 // 3:
-        raise ValueError(f"xyz {tuple(xyz.shape)}: the CUDA kNN kernel takes b <= {_MAX_GRID_Y} "
+    if not 1 <= k <= n or n >= 2**31 // 3:
+        raise ValueError(f"xyz {tuple(xyz.shape)}, k={k}: the CUDA kNN kernel takes 1 <= k <= n "
                          f"and n < 2**31 / 3")
     if lanes is None:
         lanes = lanes_for(b, n, m, k, sm_count(xyz.device))
-    elif lanes not in LANES or -(-k // lanes) > _MAX_SLOTS:
+    elif lanes not in LANES or (-(-k // lanes) > _MAX_SLOTS and lanes != LANES[-1]):
         raise ValueError(f"lanes={lanes}: the CUDA kNN kernel takes {LANES} with at most "
-                         f"{_MAX_SLOTS} list slots per lane, ceil(k / lanes), at k={k}")
+                         f"{_MAX_SLOTS} list slots per lane, ceil(k / lanes), at k={k}, "
+                         f"or {LANES[-1]} at any k")
     xyz = xyz.to(torch.float32).contiguous()
     new_xyz = new_xyz.to(torch.float32).contiguous()
     idx = torch.empty((b, m, k), dtype=torch.int32, device=xyz.device)

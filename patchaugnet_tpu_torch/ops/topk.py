@@ -23,7 +23,8 @@ is read once for one compare. S warps take a row (:func:`warps_for`
 picks S), each a contiguous chunk with 16-byte loads, each lane keeping
 a sorted top-k in registers; k warp-shuffle rounds merge the lanes'
 lists and, for S > 1, a merge in shared memory the warps': one pass over
-the matrix where the TPU kernel made k.
+the matrix where the TPU kernel made k. A k past ``MAX_K`` runs in passes
+of ``MAX_K`` within the one launch, each reading the row again.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import torch
 from . import contracts
 from .cuda import launch, sm_count
 
-# largest k the kernel is instantiated for
+# the kernel's largest list: the most one pass over a row extracts
 MAX_K = 32
 # warps per row (S) the kernel is instantiated for, and the target of
 # :func:`warps_for`
@@ -87,7 +88,7 @@ def topk_extract(dist: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     ``(b, m, k)``, ascending, lowest index on ties. Values must lie below
     1e30, the mask value of extracted columns.
 
-    A CUDA tensor runs the kernel; a CPU tensor the plain torch version.
+    A CPU tensor runs the plain torch version, a CUDA tensor the kernel.
     """
     if _check(dist, k) == "cuda":
         return _topk_extract_cuda(dist, k)
@@ -105,8 +106,6 @@ def _launch_topk(
     dist: torch.Tensor, k: int, warps: Optional[int], counter: str
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel on ``dist``, counted under ``counter``."""
-    if k > MAX_K:
-        raise ValueError(f"k={k}: the CUDA top-k kernel takes k <= {MAX_K}")
     dist = dist.to(torch.float32).contiguous()
     b, m, n = dist.shape
     s = _warps(b * m, n, dist.device, warps)
@@ -174,8 +173,6 @@ def _topk_extract_price_cuda(
     warps: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     global price_launches
-    if k > MAX_K:
-        raise ValueError(f"k={k}: the CUDA top-k kernel takes k <= {MAX_K}")
     neg_base = neg_base.to(torch.float32).contiguous()
     price = price.to(torch.float32).contiguous()
     b, m, n = neg_base.shape

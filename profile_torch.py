@@ -5,6 +5,7 @@ its auction EMD, goes on the card.
     python3 profile_torch.py [--batch 32] [--iters 5] [--table PATH] [--root DIR]
     python3 profile_torch.py --kernels [--lanes] [--layouts] [--warps] [--batch 32] [--root DIR]
     python3 profile_torch.py --emd [--table PATH] [--root DIR]
+    python3 profile_torch.py --train [--iters 5] [--table PATH] [--root DIR]
 
 Serves the full-width PatchAugNet (``configs.PATCH_AUG_NET``, seeded
 random weights) through ``serving.build_forward_fn`` and reports, per
@@ -52,6 +53,19 @@ iterations and the mean number of valid (non-padding) slots per tail
 launch, then one exact call under ``torch.profiler`` with the device's
 busy share, kernels per iteration, K6's share (every instantiation) and
 the top device kernels.
+
+With ``--train`` it runs the flagship train step instead
+(``configs.PATCH_AUG_NET_TRAIN``, ``chip_smoke.py``'s batch of 72 clouds
+of 4096 points and its correspondence tables): the host wall per step
+of ``train.build_train_step``, clouds/s and peak memory; the device ms of
+the same step's parts from CUDA events that hooks record: the forward and
+each of its stages and the patch decoder (module hooks), the losses (from
+the forward's end to the first gradient that reaches one of the model's
+outputs: the loss terms' forward and backward), the backward (to the
+optimizer's step pre-hook, so the gradient fill and the loss gate of
+``TrainState.apply_gradients`` count here) and the optimizer update; then
+the step under ``torch.profiler`` with the device's busy share and the
+top kernels.
 
 Every number is printed beside the card's name and power limit. Needs a
 CUDA device; imports nothing of JAX.
@@ -352,6 +366,108 @@ def profile_emd(torch, card, dev, table):
     return 0
 
 
+TRAIN_STAGES = STAGES + ("decoder",)
+
+
+def profile_train(torch, card, dev, iters, table):
+    """The train step at full width: wall per step, its parts' device ms
+    from CUDA events, and the profiler's busy share and top kernels."""
+    from patchaugnet_tpu_torch import configs, train
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.PATCH_AUG_NET_TRAIN
+    model = seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(5))
+    state = train.create_train_state(model, cfg, device=dev)
+    clouds, mask, corr = smoke.train_batch(torch, cfg, dev, seed=6)
+    step = train.build_train_step(model, cfg)
+    for _ in range(2):
+        state, _ = step(state, clouds, corr, mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = step(state, clouds, corr, mask)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[{card}] train step, {clouds.shape[0]} clouds: {wall_ms:.3f} ms per step (host wall), "
+          f"{clouds.shape[0] / wall_ms * 1e3:.1f} clouds/s, peak memory {peak:.3f} GiB", flush=True)
+
+    # the parts of the real step, bracketed by CUDA events from hooks: the
+    # model's forward hooks, a gradient hook on each of its outputs (the
+    # first to fire ends "loss", the loss terms' forward and backward), and
+    # the optimizer's step hooks (its pre-hook ends "backward")
+    marks = {name: [] for name in TRAIN_STAGES + ("forward", "loss", "backward", "optimizer")}
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def open_(name):
+        marks[name].append([event(), None])
+
+    def close(name, then=None):
+        ev = event()
+        marks[name][-1][1] = ev
+        if then:
+            marks[then].append([ev, None])
+
+    def first_grad(grad):
+        if marks["loss"][-1][1] is None:
+            close("loss", then="backward")
+
+    def outputs_hook(module, args, out):
+        close("forward", then="loss")
+        pd = out.patch_data
+        for t in (out.global_desc, pd.patch_features, pd.reconstructed_patches):
+            if t is not None and t.requires_grad:
+                t.register_hook(first_grad)
+
+    model = state.model
+    handles = [model.register_forward_pre_hook(lambda m, a: open_("forward")),
+               model.register_forward_hook(outputs_hook),
+               state.optimizer.register_step_pre_hook(lambda opt, a, k: close("backward", then="optimizer")),
+               state.optimizer.register_step_post_hook(lambda opt, a, k: close("optimizer"))]
+    for name in TRAIN_STAGES:
+        sub = getattr(model, name)
+        handles.append(sub.register_forward_pre_hook(lambda m, a, name=name: open_(name)))
+        handles.append(sub.register_forward_hook(lambda m, a, o, name=name: close(name)))
+    for _ in range(iters):
+        state, _ = step(state, clouds, corr, mask)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    part = {name: sum(a.elapsed_time(b) for a, b in pairs) / iters for name, pairs in marks.items()}
+    whole = part["forward"] + part["loss"] + part["backward"] + part["optimizer"]
+    for name in ("forward", "loss", "backward", "optimizer"):
+        print(f"[{card}] train {name}: {part[name]:.3f} ms ({part[name] / whole:.1%} of {whole:.3f} ms)",
+              flush=True)
+    for name in TRAIN_STAGES:
+        print(f"[{card}]   forward stage {name}: {part[name]:.3f} ms", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            state, metrics = step(state, clouds, corr, mask)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    key, rows, kernels = device_kernels(prof)
+    busy = sum(getattr(r, key) for r in kernels) / 1e3
+    print(f"[{card}] profiler: device busy {busy / iters:.3f} ms per step over a {window_ms / iters:.3f} ms "
+          f"window ({1 - busy / window_ms:.1%} idle), {sum(r.count for r in kernels) / iters:.0f} kernels "
+          f"per step", flush=True)
+    for r in sorted(kernels, key=lambda r: -getattr(r, key))[:15]:
+        print(f"[{card}]   {getattr(r, key) / 1e3 / iters:8.3f} ms  x{r.count // iters:<4d} {r.key[:90]}",
+              flush=True)
+    if table:
+        write_table(table, card, rows, key)
+    print(f"[{card}] metrics after step {state.step}: {({k: round(v.item(), 6) for k, v in metrics.items()})}")
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=32)
@@ -365,6 +481,7 @@ def main():
                         help="with --kernels: K1 at every layout, at B=32 and B=100")
     parser.add_argument("--warps", action="store_true",
                         help="with --kernels: the top-k kernel at every warps-per-row count")
+    parser.add_argument("--train", action="store_true", help="profile the train step instead")
     parser.add_argument("--root", default=ROOT, help="checkout to import patchaugnet_tpu_torch from")
     args = parser.parse_args()
 
@@ -388,6 +505,8 @@ def main():
         return profile_emd(torch, card, dev, args.table)
     if args.kernels:
         return profile_kernels(torch, card, dev, args.batch, args.lanes, args.layouts, args.warps)
+    if args.train:
+        return profile_train(torch, card, dev, args.iters, args.table)
     model = seeded_init_(get_model("patch_aug_net", configs.PATCH_AUG_NET),
                          torch.Generator().manual_seed(0))
     forward = serving.build_forward_fn(model, device=dev)

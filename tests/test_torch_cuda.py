@@ -173,8 +173,10 @@ def test_knn_rejects_what_the_kernel_does_not_take(device):
         knn_ops._knn_cuda(x, x, 3, lanes=2)
     with pytest.raises(ValueError):                     # 5 list slots per lane
         knn_ops._knn_cuda(x, x, 20, lanes=4)
+    with pytest.raises(ValueError):                     # 5 list slots per lane; passes take 32
+        knn_ops._knn_cuda(x, x, 33, lanes=8)
     with pytest.raises(ValueError):
-        knn_ops._knn_cuda(x, x, 33)
+        knn_ops._knn_cuda(x, x, 65)
     with pytest.raises(ValueError):
         knn_ops._knn_cuda(x, x.cpu(), 3)
 
@@ -397,3 +399,160 @@ def test_wide_knn_goes_through_topk_kernel(device, rng):
     gi, _ = ops.knn(x, q, 5)
     assert (topk_ops.launches, knn_ops.launches) == (before[0] + 1, before[1])
     assert torch.equal(gi, topk_ops._topk_extract_torch(ops.pairwise_sqdist(q, x), 5)[0])
+
+
+# ------------------------------------------------------------ train step
+# the train step's batch: 4 queries x (1 + 2 + 14 + 1) clouds; the SA and
+# FP levels at a quarter of the point count (1024 -> 256 -> 32 -> 4)
+_TRAIN_B = 72
+_TRAIN_LEVELS = (1024, 256, 32, 4)
+
+
+def test_fps_and_knn_at_the_train_batch(device, rng):
+    """K1 at the three SA levels and K2 at the three SA levels (k=20) and
+    the three FP levels' 3-NN, at the train step's batch of 72: indices
+    and d2 equal to the plain versions, one launch each."""
+    x = [_cloud(rng, _TRAIN_B, _TRAIN_LEVELS[0], device)]
+    for m in _TRAIN_LEVELS[1:]:
+        before = fps_ops.launches
+        idx = ops.farthest_point_sample(x[-1], m)
+        assert fps_ops.launches == before + 1
+        assert torch.equal(idx, fps_ops._farthest_point_sample_torch(x[-1], m))
+        x.append(ops.gather(x[-1], idx))
+    cases = [(x[lv], x[lv + 1], min(20, x[lv].shape[1])) for lv in range(3)]
+    cases += [(x[lv + 1], x[lv], 3) for lv in range(3)]
+    for pts, qry, k in cases:
+        before = knn_ops.launches
+        gi, gd = ops.knn(pts, qry, k)
+        assert knn_ops.launches == before + 1
+        ri, rd = knn_ops._knn_torch(pts, qry, k)
+        assert torch.equal(gi, ri) and torch.equal(gd, rd)
+
+
+def _tiny_train_batch(rng, cfg):
+    """Seeded clouds, mask (queries and positives) and correspondence
+    tables for ``cfg``'s tuple batch; pair 2 has no valid row."""
+    from patchaugnet_tpu_torch.losses import PatchCorrespondences
+
+    b, p = cfg["TRAIN_BATCH_SIZE"], cfg["TRAIN_POSITIVES_PER_QUERY"]
+    t = 1 + p + cfg["TRAIN_NEGATIVES_PER_QUERY"] + 1
+    clouds = rng.rand(b * t, cfg["NUM_POINTS"], 3).astype(np.float32)
+    mask = np.zeros(b * t, bool)
+    for q in range(b):
+        mask[q * t: q * t + 1 + p] = True
+    rows = cfg["A2B_MAX_ROWS"]
+    pair = rng.randint(0, 3, rows).astype(np.int32)
+    q_cloud = (t * (pair % b)).astype(np.int32)
+    slots = [torch.from_numpy(rng.randint(0, cfg["SAMPLING"][0], rows).astype(np.int32)) for _ in range(3)]
+    corr = PatchCorrespondences(torch.from_numpy(q_cloud), torch.from_numpy(q_cloud + 1), *slots,
+                                torch.from_numpy(pair), torch.from_numpy((rng.rand(rows) < 0.5) & (pair != 2)),
+                                cfg["A2B_MAX_PAIRS"])
+    return clouds, mask, corr
+
+
+def test_train_step_matches_plain_kernels(device, rng, monkeypatch):
+    """One train step at a tiny configuration on the kernels against the
+    same step from a copy of the state under the plain versions, on the
+    card: provenance indices equal, metrics and new BN running statistics
+    within 1e-6 (the forward is the same arithmetic on equal indices);
+    K1 3 and K2 6 launches."""
+    import copy
+
+    from patchaugnet_tpu_torch import configs, train
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    cfg = dict(configs.PATCH_AUG_NET_TRAIN, NUM_POINTS=128, SAMPLING=[32, 8, 4], KNN=[8, 8, 4],
+               MAX_SAMPLES=[8, 32, 128], TRAIN_BATCH_SIZE=2, TRAIN_POSITIVES_PER_QUERY=1,
+               TRAIN_NEGATIVES_PER_QUERY=2, A2B_MAX_ROWS=64, A2B_MAX_PAIRS=4)
+    model = seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(0))
+    state = train.create_train_state(model, cfg, device=device)
+    plain = copy.deepcopy(state)
+    clouds, mask, corr = _tiny_train_batch(rng, cfg)
+    outs = []
+    hooks = [s.model.register_forward_hook(lambda mod, args, out: outs.append(out)) for s in (state, plain)]
+    counts = (fps_ops.launches, knn_ops.launches, topk_ops.launches)
+    state, metrics = train.build_train_step(state.model, cfg)(state, clouds, corr, mask)
+    torch.cuda.synchronize()
+    after = (fps_ops.launches, knn_ops.launches, topk_ops.launches)
+    assert tuple(a - b for a, b in zip(after, counts)) == (3, 6, 0)
+    monkeypatch.setattr(fps_ops, "_fps_cuda", fps_ops._farthest_point_sample_torch)
+    monkeypatch.setattr(knn_ops, "_knn_cuda", knn_ops._knn_torch)
+    plain, want = train.build_train_step(plain.model, cfg)(plain, clouds, corr, mask)
+    assert fps_ops.launches == after[0] and knn_ops.launches == after[1]
+    for h in hooks:
+        h.remove()
+    for name in ("center_idx_origin", "sample_idx_origin"):
+        for a, b in zip(getattr(outs[0], name), getattr(outs[1], name)):
+            assert torch.equal(a, b), name
+    assert set(metrics) == {"place_recognition", "patch_recon_a2a", "patch_recon_a2b", "total"}
+    for key, value in want.items():
+        torch.testing.assert_close(metrics[key], value, rtol=1e-6, atol=0)
+        assert torch.isfinite(value) and value > 0, key
+    for (name, a), b in zip(state.model.named_buffers(), plain.model.buffers()):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6, msg=name)
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
+
+
+# ------------------------------------------------------------ past one list
+@pytest.mark.parametrize("k,lanes", [(33, None), (96, 32), (97, None), (200, 32)])
+def test_knn_past_one_list(device, rng, k, lanes):
+    """``ops.knn`` at k past 32 (one list of up to 96 pairs) and past 96
+    (passes of 96 in the one launch), with ties: one launch, equal to the
+    plain version."""
+    x, q = _cloud(rng, 2, 300, device, ties=True), _cloud(rng, 2, 50, device, ties=True)
+    before = knn_ops.launches
+    gi, gd = ops.knn(x, q, k) if lanes is None else knn_ops._knn_cuda(x, q, k, lanes=lanes)
+    torch.cuda.synchronize()
+    assert knn_ops.launches == before + 1
+    ri, rd = knn_ops._knn_torch(x, q, k)
+    assert torch.equal(gi, ri) and torch.equal(gd, rd)
+
+
+def test_knn_past_65535_clouds(device, rng):
+    """More clouds than a grid's second axis takes: one launch."""
+    many = _cloud(rng, 65536 + 7, 8, device)
+    before = knn_ops.launches
+    gi, gd = ops.knn(many, many, 2)
+    torch.cuda.synchronize()
+    assert knn_ops.launches == before + 1
+    ri, rd = knn_ops._knn_torch(many, many, 2)
+    assert torch.equal(gi, ri) and torch.equal(gd, rd)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("k", [33, 40, 100])
+def test_topk_past_one_list(device, rng, warps, k):
+    """The top-k kernel at k past 32 (passes of 32 in the one launch), for
+    K3, K6 with and without row ids and K4, at every S, on rows with ties:
+    equal to the plain versions."""
+    d = torch.from_numpy(rng.randint(0, 50, (2, 24, 1000)).astype(np.float32)).to(device)
+    price = torch.from_numpy(rng.randint(0, 3, (2, 1000)).astype(np.float32)).to(device)
+    ids = torch.from_numpy(rng.randint(0, 25, (2, 16))).to(device)
+    before = topk_ops.launches, topk_ops.price_launches, topk_ops.chunked_launches
+    for got, want in ((topk_ops._topk_extract_cuda(d, k, warps=warps), topk_ops._topk_extract_torch(d, k)),
+                      (topk_ops._topk_extract_price_cuda(d, price, k, warps=warps),
+                       topk_ops._topk_extract_price_torch(d, price, k)),
+                      (topk_ops._topk_extract_price_cuda(d, price, k, ids, warps=warps),
+                       topk_ops._topk_extract_price_torch(d, price, k, ids)),
+                      (topk_ops._topk_extract_chunked_cuda(d, k, warps=warps), topk_ops._topk_extract_torch(d, k))):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (topk_ops.launches, topk_ops.price_launches, topk_ops.chunked_launches) == (
+        before[0] + 1, before[1] + 2, before[2] + 1)
+
+
+def test_public_topk_wrappers_past_one_list(device, rng):
+    """``ops.topk_extract``, ``topk_extract_price`` and
+    ``topk_extract_chunked`` at k = 40 launch the kernel."""
+    d = torch.from_numpy(rng.rand(2, 64, 4096).astype(np.float32)).to(device)
+    price = torch.from_numpy(rng.rand(2, 4096).astype(np.float32)).to(device)
+    ids = torch.from_numpy(rng.randint(0, 65, (2, 16))).to(device)
+    before = topk_ops.launches, topk_ops.price_launches, topk_ops.chunked_launches
+    for got, want in ((ops.topk_extract(d, 40), topk_ops._topk_extract_torch(d, 40)),
+                      (ops.topk_extract_price(d, price, 40), topk_ops._topk_extract_price_torch(d, price, 40)),
+                      (ops.topk_extract_price(d, price, 40, ids),
+                       topk_ops._topk_extract_price_torch(d, price, 40, ids)),
+                      (ops.topk_extract_chunked(d, 40), topk_ops._topk_extract_torch(d, 40))):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (topk_ops.launches, topk_ops.price_launches, topk_ops.chunked_launches) == (
+        before[0] + 1, before[1] + 2, before[2] + 1)

@@ -19,7 +19,7 @@ import yaml
 
 from patchaugnet_tpu.models import PatchAugNet as JaxPatchAugNet
 
-from patchaugnet_tpu_torch import configs, serving
+from patchaugnet_tpu_torch import configs, serving, train
 from patchaugnet_tpu_torch.compat import load_jax_variables
 from patchaugnet_tpu_torch.models import PatchAugNet, get_model
 from patchaugnet_tpu_torch.nn import BatchNorm, seeded_init_
@@ -103,11 +103,16 @@ def test_unported_options_raise():
     for key, value in (("COMPUTE_DTYPE", "bfloat16"), ("KNN_APPROX_RECALL", 0.95)):
         with pytest.raises(NotImplementedError, match=key):
             PatchAugNet(dict(TINY, **{key: value}))
-    model = PatchAugNet(TINY).eval()
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 128, 3), with_patches=True)
-    with pytest.raises(NotImplementedError):
-        BatchNorm(4)(torch.zeros(2, 4))   # a fresh module is in train mode
+    # the train step's options that are not ported
+    model = PatchAugNet(TINY)
+    with pytest.raises(NotImplementedError, match="REMAT"):
+        train.build_train_step(model, dict(configs.PATCH_AUG_NET_TRAIN, REMAT=True))
+    # the patch branch and train-mode BatchNorm are ported (tests/test_torch_train.py);
+    # a model built without a decoder reconstructs nothing
+    out = model.eval()(torch.rand(2, 128, 3), with_patches=True)
+    assert out.patch_data.reconstructed_patches is None
+    assert out.patch_data.origin_patches.shape == (2, TINY["SAMPLING"][0], TINY["KNN"][0], 3)
+    assert BatchNorm(4)(torch.zeros(2, 4)).shape == (2, 4)   # a fresh module is in train mode
 
 
 def test_seeded_init_is_reproducible_and_exercises_bn():
@@ -127,6 +132,15 @@ def test_config_copy_matches_yaml():
         cfg = yaml.safe_load(f)
     assert set(configs.PATCH_AUG_NET) == set(FULL_PARAM)
     assert configs.PATCH_AUG_NET == {key: cfg[key] for key in configs.PATCH_AUG_NET}
+    # the training keys: patch losses and weights, the tuple batch,
+    # optimizer and schedule, margins, loss flags, a2b table sizes
+    assert configs.PATCH_AUG_NET_TRAIN == {key: cfg[key] for key in configs.PATCH_AUG_NET_TRAIN}
+    assert set(configs.PATCH_AUG_NET_TRAIN) - set(configs.PATCH_AUG_NET) == {
+        "use_hard_negative_patch_mining", "weight_place_recognition", "weight_patch_recon",
+        "weight_patch_feature_contrast", "TRAIN_BATCH_SIZE", "TRAIN_POSITIVES_PER_QUERY",
+        "TRAIN_NEGATIVES_PER_QUERY", "BASE_LEARNING_RATE", "MOMENTUM", "OPTIMIZER", "MAX_EPOCH",
+        "LEARNING_RATE_DECAY", "MARGIN_1", "MARGIN_2", "LOSS_FUNCTION", "LOSS_LAZY",
+        "TRIPLET_USE_BEST_POSITIVES", "LOSS_IGNORE_ZERO_BATCH", "A2B_MAX_ROWS", "A2B_MAX_PAIRS"}
 
 
 _IMPORT_EVERY_MODULE = """
@@ -140,6 +154,8 @@ for name in names:
 leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "patchaugnet_tpu")
           and sys.modules[m] is not None]
 assert not leaked, leaked
+for name in ("train", "train.state", "train.step", "losses.metric", "losses.patch_contrast", "nn.pointnet"):
+    assert "patchaugnet_tpu_torch." + name in names, name
 print(len(names))
 """
 
@@ -147,9 +163,10 @@ print(len(names))
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every port module imports with jax, flax and patchaugnet_tpu
     blocked in ``sys.modules`` (an exact-name block, not a prefix match:
-    ``patchaugnet_tpu`` is a prefix of ``patchaugnet_tpu_torch``)."""
+    ``patchaugnet_tpu`` is a prefix of ``patchaugnet_tpu_torch``), the
+    train slice's among them."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _IMPORT_EVERY_MODULE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 21
