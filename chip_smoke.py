@@ -57,7 +57,32 @@ Phases, each fatal on failure:
    loss term finite and positive, parameters and statistics changed and
    finite; then ms per step, clouds/s and peak device memory over 10
    steps after 3 warm-up steps;
-6. report: one ``{"kernels": [...]}`` line, the card's name and power
+6. CLI: ``train_torch.py``'s ``main`` in this process on the flagship
+   config (``configs/patch_aug_net.yaml``, 4096 points, 4 x 18 = 72 clouds
+   per batch) and the synthetic scene for one epoch: up to 12 batches, the
+   patch branch on the tables the data engine builds from synthetic
+   overlap entries; each batch must launch K1 once for its centres and 3
+   times and K2 6 times in its step, and no other kernel; every loss
+   finite, the checkpoint written; the host's ms per batch in tuple
+   sampling, synthetic overlaps, the centres (copy, FPS, read) and table
+   building, and the same epoch again under the profiler for the card's
+   idle share; then ``evaluate_torch.py``'s ``main`` on the untrained
+   model (no ``--weight``) and on the checkpoint (descriptors unit-norm,
+   recall@1 and 1% recall for the trip pair equal to the CPU retrieval's
+   on the same descriptors, the top-k dump written, K1 3 and K2 6
+   launches per eval forward), and the eval's descriptor sweep timed 10
+   times after a warm-up; then the train split's descriptor refresh (the
+   model in eval mode during it and back in train mode after) and
+   hard-negative mining on the card, on the trained model's descriptors
+   and on seeded random unit ones, equal to the CPU retrieval's lists at
+   every rank that is not an exact near-tie within the f32 rounding
+   bound of the distances (lists made to end in their farthest negative
+   must fail that check); then K1 and K2 at the eval batch (100 clouds)
+   and a refresh batch (36), bit-equal to the plain versions at every
+   level, and the trained model on those batches through the kernels and
+   through the plain versions (provenance indices equal, descriptors
+   within 1e-5);
+7. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -97,6 +122,9 @@ CHUNKED_N, CHUNKED_ITERS = 8192, 20                     # a row-chunked auction,
 STEP_LAUNCHES = {"fps": 3, "knn": 6}
 CENTER_LAUNCHES = {"fps": 1}
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+CLI_CONFIG = "configs/patch_aug_net.yaml"     # the CLIs' flagship run on the synthetic scene
+F32_UNIT = 2.0 ** -24                         # unit roundoff of f32 (the mining check's bound)
+EVAL_REPEATS = 10                             # timed eval sweeps of the test split after the CLI's eval
 
 
 def say(*parts):
@@ -562,6 +590,33 @@ def phase_emd_kernels(torch, ops, mods, dev):
     return [k4, k6]
 
 
+def check_against_plain(torch, mods, records, model, clouds, what):
+    """``model`` in eval mode on ``clouds`` through the kernels and through
+    their plain versions: provenance indices equal, global descriptors
+    within 1e-5. The model's mode is restored. Returns the kernels' global
+    descriptors and their max abs error."""
+    training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            ref = model(clouds)
+            with plain_kernels(mods):
+                before = read_counts(mods, records)
+                plain = model(clouds)
+                if read_counts(mods, records) != before:
+                    raise AssertionError(f"{what}: the plain run launched a kernel")
+    finally:
+        model.train(training)
+    for name in ("center_idx_origin", "sample_idx_origin"):
+        for level, (a, b) in enumerate(zip(getattr(ref, name), getattr(plain, name))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name}[{level}] of the kernel path differs from the plain path")
+    desc_err = (ref.global_desc - plain.global_desc).abs().max().item()
+    if desc_err > 1e-5:
+        raise AssertionError(f"{what}: descriptors differ from the plain path's by {desc_err}")
+    return ref.global_desc, desc_err
+
+
 def phase_serving(torch, mods, records, dev):
     from patchaugnet_tpu_torch import configs, serving
     from patchaugnet_tpu_torch.models import get_model
@@ -595,24 +650,13 @@ def phase_serving(torch, mods, records, dev):
         if norm_err > 1e-5:
             raise AssertionError(f"descriptors not unit-norm (max |norm - 1| = {norm_err})")
 
-    with torch.inference_mode():
-        ref = model(requests[0])
-        with plain_kernels(mods):
-            before = read_counts(mods, records)
-            plain = model(requests[0])
-            if read_counts(mods, records) != before:
-                raise AssertionError("the plain run launched a kernel")
-    for name in ("center_idx_origin", "sample_idx_origin"):
-        for level, (a, b) in enumerate(zip(getattr(ref, name), getattr(plain, name))):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{name}[{level}]: kernel path differs from the plain path")
-    desc_err = (ref.global_desc - plain.global_desc).abs().max().item()
-    served_err = (ref.global_desc - descs[0]).abs().max().item()
-    if desc_err > 1e-5 or served_err > 1e-5:
-        raise AssertionError(f"descriptors differ: plain {desc_err}, served {served_err}")
+    ref, desc_err = check_against_plain(torch, mods, records, model, requests[0], f"serving B={B}")
+    served_err = (ref - descs[0]).abs().max().item()
+    if served_err > 1e-5:
+        raise AssertionError(f"served descriptors differ from the direct forward's by {served_err}")
     say(f"serving: provenance indices equal to the plain path; descriptor max abs err {desc_err:.3g} "
         f"(plain), {served_err:.3g} (served vs direct)")
-    del ref, plain, descs
+    del ref, descs
 
     for batch, iters in THROUGHPUT_BATCHES:
         clouds = torch.rand(batch, N_POINTS, 3, generator=gen, device=dev)
@@ -754,14 +798,14 @@ def train_batch(torch, cfg, dev, seed):
     return clouds, torch.from_numpy(mask).to(dev), corr
 
 
-def check_train_shapes(torch, mods, dev, cfg):
-    """K1 at the three SA levels and K2 at the six kNN cases of the train
-    step's batch, bit-equal to their plain versions (the lanes rule takes
-    the batch: SA1 runs 8 lanes per query at 72 clouds, 32 at 32)."""
+def check_level_shapes(torch, mods, dev, batch, what):
+    """K1 at the three SA levels and K2 at the six kNN cases of a forward
+    on ``batch`` clouds, bit-equal to their plain versions (the lanes rule
+    takes the batch: SA1 runs 32 lanes per query at 32 clouds, 16 at 36
+    and 8 at 72 and 100)."""
     from patchaugnet_tpu_torch import ops
 
     fps, knn = mods["fps"], mods["knn"]
-    batch = cfg["TRAIN_BATCH_SIZE"] * (cfg["TRAIN_POSITIVES_PER_QUERY"] + cfg["TRAIN_NEGATIVES_PER_QUERY"] + 2)
     x = level_clouds(torch, ops, fps._farthest_point_sample_torch, torch.Generator(device=dev).manual_seed(7), batch)
     for level in range(3):
         if not torch.equal(ops.farthest_point_sample(x[level], x[level + 1].shape[1]),
@@ -771,7 +815,7 @@ def check_train_shapes(torch, mods, dev, cfg):
     for label, pts, qry, k in knn_cases(x):
         check_equal(torch, f"knn {label} B={batch}", ops.knn(pts, qry, k), knn._knn_torch(pts, qry, k))
         lanes.append(f"{label} {knn.lanes_for(batch, pts.shape[1], qry.shape[1], k, mods['cuda'].sm_count(dev))}")
-    say(f"K1 and K2 at the train step's batch B={batch}: bit-equal to the plain versions at the three SA levels "
+    say(f"K1 and K2 at {what} B={batch}: bit-equal to the plain versions at the three SA levels "
         f"and the six kNN cases (lanes per query: {', '.join(lanes)})")
 
 
@@ -782,7 +826,9 @@ def phase_train(torch, mods, records, dev):
     from patchaugnet_tpu_torch.nn import seeded_init_
 
     cfg = configs.PATCH_AUG_NET_TRAIN
-    check_train_shapes(torch, mods, dev, cfg)
+    check_level_shapes(torch, mods, dev, cfg["TRAIN_BATCH_SIZE"] * (cfg["TRAIN_POSITIVES_PER_QUERY"]
+                                                                   + cfg["TRAIN_NEGATIVES_PER_QUERY"] + 2),
+                       "the train step's batch")
     model = seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(5))
     state = train.create_train_state(model, cfg, device=dev)
     plain_state = copy.deepcopy(state)
@@ -864,7 +910,355 @@ def phase_train(torch, mods, records, dev):
              f"{sec * 1e3:.2f} ms per step ({TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up; first step "
              f"{first_ms:.2f} ms), {total / sec:.1f} clouds/s, peak memory {peak:.2f} GiB, "
              f"step {state.step} metrics {last}")
-    return center_counts, step_counts
+    return center_counts, step_counts, sec * 1e3
+
+
+class HostClock:
+    """Host seconds spent in named functions, by wrapping them in place
+    (``patch``); ``undo`` restores every original."""
+
+    def __init__(self):
+        self.seconds, self.calls, self._saved = {}, {}, []
+
+    def wrap(self, label, fn, before=None, after=None):
+        def timed(*args, **kwargs):
+            if before is not None:
+                before()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[label] = self.seconds.get(label, 0.0) + time.perf_counter() - t0
+                self.calls[label] = self.calls.get(label, 0) + 1
+                if after is not None:
+                    after()
+        return timed
+
+    def patch(self, owner, name, label, **hooks):
+        self._saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, self.wrap(label, getattr(owner, name), **hooks))
+
+    def undo(self):
+        while self._saved:
+            owner, name, fn = self._saved.pop()
+            setattr(owner, name, fn)
+
+
+def device_busy_ms(torch, fn):
+    """(device busy ms, host wall ms) of ``fn()`` under ``torch.profiler``
+    tracing the card alone: the kernels' and copies' device time, summed
+    (one stream, so the sum counts each busy instant once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    key = "self_device_time_total" if hasattr(rows[0], "self_device_time_total") else "self_cuda_time_total"
+    return sum(getattr(r, key) for r in rows) / 1e3, wall
+
+
+def dist_bound(sq_q, sq_d, dim):
+    """Bound on the f32 rounding error of ``max(|q|^2 + |d|^2 - 2 q.d, 0)``
+    over ``dim`` components, in any summation order: gamma_{dim+2} (|q|^2 +
+    |d|^2 + 2 |q| |d|) <= 2 gamma_{dim+2} (|q|^2 + |d|^2), where gamma_n =
+    n u / (1 - n u) and u = 2^-24."""
+    n = dim + 2
+    return 2 * n * F32_UNIT / (1 - n * F32_UNIT) * (sq_q + sq_d)
+
+
+def check_mined(np, retrieval, train_ds, mined):
+    """Hard negatives mined on the card against the CPU retrieval's on the
+    same descriptors, position by position. Each side ranks f32 distances
+    that lie within e (``dist_bound``) of the exact ones, so a rank's f32
+    order statistic lies within e of the exact one and its pick within 2e.
+    Every pick of either list must lie within 2e of its rank's exact
+    (float64) distance, and the lists must be equal at every position
+    whose exact distance lies more than 2e from both of its neighbours'
+    (a near-tie there may round either way). ``mined``: query -> the
+    card's list. Returns what the report prints."""
+    scene = train_ds.scene
+    queries = sorted(mined)
+    negatives = [scene.get_tuple(q, -1, scene.data_cfg["skip_trip_itself"]).negative_indices for q in queries]
+    want = retrieval.hard_negatives_batch(scene.global_descs[queries], scene.global_descs, negatives,
+                                          train_ds.num_hard_neg, device="cpu")
+    if not mined or len(want) != len(mined):
+        raise AssertionError("hard-negative mining on the card returned no lists")
+    descs = scene.global_descs.astype(np.float64)
+    sq = (descs ** 2).sum(-1)
+    out = {"lists": len(queries), "equal": 0, "positions": 0, "near": 0, "differ": 0, "tol": 0.0,
+           "spreads": [], "within": 0, "gap": float("inf")}
+    for q, negs, cpu in zip(queries, negatives, want):
+        got, k = mined[q], len(cpu)
+        out["equal"] += got == cpu
+        if len(got) != k or len(set(got)) != k or not set(got) <= set(negs):
+            raise AssertionError(f"hard negatives of query {q}: {got} against the CPU's {cpu}")
+        if not k:
+            continue
+        negs = np.asarray(negs)
+        exact = ((descs[negs] - descs[q]) ** 2).sum(-1)
+        dist = dict(zip(negs.tolist(), exact.tolist()))
+        ranked = np.sort(exact)
+        gaps = np.diff(ranked)
+        tie = 2 * dist_bound(sq[q], sq[negs].max(), descs.shape[1])
+        for i, (a, b) in enumerate(zip(got, cpu)):
+            off = max(abs(dist[a] - ranked[i]), abs(dist[b] - ranked[i]))
+            if off > tie:
+                raise AssertionError(f"hard negatives of query {q}, rank {i}: a pick lies {off:.3g} from the "
+                                     f"rank's exact distance, past {tie:.3g} (card {got}, CPU {cpu})")
+            near = (i > 0 and gaps[i - 1] <= tie) or (i < len(gaps) and gaps[i] <= tie)
+            if a != b and not near:
+                raise AssertionError(f"hard negatives of query {q}, rank {i}: card {a}, CPU {b}, no exact "
+                                     f"distance within {tie:.3g} (card {got}, CPU {cpu})")
+            out["near"] += bool(near)
+            out["differ"] += a != b
+        out["positions"] += k
+        out["tol"] = max(out["tol"], tie)
+        out["spreads"].append(ranked[-1] - ranked[k - 1])
+        out["within"] = max(out["within"], int(np.sum(ranked[k:] - ranked[k - 1] <= tie)))
+        if len(ranked) > k:
+            out["gap"] = min(out["gap"], gaps[k - 1])
+    return out
+
+
+def phase_cli(torch, mods, records, step_ms):
+    """The port's CLIs at full width on the synthetic scene: train an epoch,
+    evaluate the checkpoint, refresh the descriptors and mine hard
+    negatives on the card; then where a CLI batch's time goes."""
+    import tempfile
+
+    import numpy as np
+
+    import evaluate_torch
+    import train_torch
+    from patchaugnet_tpu_torch import train
+    from patchaugnet_tpu_torch.data import retrieval, tuple_dataset
+    from patchaugnet_tpu_torch.train import loop
+
+    config = os.path.join(ROOT, CLI_CONFIG)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        # 1. train: one epoch of train_torch.py, its host parts timed and
+        # the launches read at the edges of every centres call and step
+        clock = HostClock()
+        marks = []                                          # (what, host clock, counts) at each edge
+
+        def mark(what):
+            return lambda: marks.append((what, time.perf_counter(), read_counts(mods, records)))
+
+        clock.patch(tuple_dataset.PlaceRecognitionDataset, "sample_batch", "sample")
+        clock.patch(tuple_dataset.PlaceRecognitionDataset, "_batch_overlaps", "overlaps")
+        clock.patch(loop, "prepare_patch_inputs", "prepare", before=mark("prepare"), after=mark("prepared"))
+        clock.patch(loop, "build_correspondences", "tables")
+        build_step = train.build_train_step
+
+        def timed_build_train_step(*args, **kwargs):
+            return clock.wrap("step", build_step(*args, **kwargs), before=mark("step"), after=mark("stepped"))
+
+        train.build_train_step = timed_build_train_step
+        argv = ["--config", config, "--dataset", "synthetic", "--epochs", "1", "--exp_dir",
+                os.path.join(tmp, "train")]
+        try:
+            reset_counts(mods, records)
+            run = train_torch.main(argv)
+            torch.cuda.synchronize()
+            train_counts = read_counts(mods, records)
+        finally:
+            train.build_train_step = build_step
+            clock.undo()
+        summary = run["summaries"][0]
+        batches, patch_batches = summary["batches"], summary["patch_batches"]
+        cfg = run["cfg"]
+        clouds_per_batch = cfg["TRAIN_BATCH_SIZE"] * (cfg["TRAIN_POSITIVES_PER_QUERY"]
+                                                      + cfg["TRAIN_NEGATIVES_PER_QUERY"] + 2)
+        if batches == 0 or patch_batches != batches:
+            raise AssertionError(f"CLI train: {batches} batches, {patch_batches} with overlap tables")
+        windows = {"prepared": ("prepare", CENTER_LAUNCHES), "stepped": ("step", STEP_LAUNCHES)}
+        for (w0, _, c0), (w1, _, c1) in zip(marks, marks[1:]):
+            if w1 in windows:
+                opened, want = windows[w1]
+                if w0 != opened:
+                    raise AssertionError(f"CLI train: {w1} after {w0}")
+                check_launches({k: c1[k] - c0[k] for k in c1}, want, f"CLI train, one batch's {opened}")
+        per_batch = {k: CENTER_LAUNCHES.get(k, 0) + STEP_LAUNCHES.get(k, 0) for k in train_counts}
+        check_launches(train_counts, {k: v * batches for k, v in per_batch.items()}, "CLI train epoch")
+        losses = {k: v for k, v in summary.items() if k in ("total", "place_recognition", "patch_recon_a2a",
+                                                             "patch_recon_a2b")}
+        if len(losses) != 4 or not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"CLI train: epoch losses {losses}")
+        with open(os.path.join(cfg["event_dir"], "metrics.jsonl")) as f:
+            steps = [json.loads(line) for line in f if '"iter_loss"' in line]
+        if len(steps) != batches or not all(np.isfinite(r["train_total"]) for r in steps):
+            raise AssertionError(f"CLI train: {len(steps)} logged steps for {batches} batches, or a loss not finite")
+        ckpt = os.path.join(cfg["save_path"], "train_epoch_0_end")
+        if not os.path.exists(ckpt):
+            raise AssertionError(f"CLI train: no checkpoint {ckpt}")
+        wall_ms = summary["seconds"] * 1e3
+        starts = [t for what, t, _ in marks if what == "step"]
+        steady_ms = (starts[-1] - starts[0]) * 1e3 / (len(starts) - 1)
+        measured(f"CLI train_torch.py, {cfg['NUM_POINTS']}-point synthetic scene, {len(run['train_ds'])} train "
+                 f"records, 1 epoch",
+                 f"{batches} batches of {clouds_per_batch} clouds, all with overlap tables; the epoch "
+                 f"{wall_ms / batches:.2f} ms per batch, {clouds_per_batch * batches / summary['seconds']:.1f} "
+                 f"clouds/s (its last metric reads and checkpoint included); from the first step's call to the "
+                 f"last's {steady_ms:.2f} ms per batch, {clouds_per_batch / steady_ms * 1e3:.1f} clouds/s "
+                 f"(phase 5's step alone: {step_ms:.2f} ms); launches {train_counts} (K1 3 + 1 and K2 6 per "
+                 f"batch); epoch losses {({k: round(v, 6) for k, v in losses.items()})}")
+        host = {k: v * 1e3 / batches for k, v in clock.seconds.items()}
+        sampling = host["sample"] - host["overlaps"]
+        centres = host["prepare"] - host["tables"]
+        host_parts = host["sample"] + host["prepare"]
+        measured("CLI train batch, host ms per batch",
+                 f"tuple sampling {sampling:.2f}, synthetic overlaps {host['overlaps']:.2f}, centres (the "
+                 f"copy, the FPS and the read, waiting behind the previous step) {centres:.2f}, table building "
+                 f"{host['tables']:.2f}; the step's call {host['step']:.2f} (copy and queue); the rest (metric "
+                 f"reads, checkpoint) {wall_ms / batches - host_parts - host['step']:.2f}; host parts "
+                 f"{host_parts / (wall_ms / batches):.1%} of a batch")
+
+        # the same run under the profiler, for the card's idle share over
+        # the epoch (its busy time includes the set-up's few copies)
+        prof_argv = ["--config", config, "--dataset", "synthetic", "--epochs", "1", "--exp_dir",
+                     os.path.join(tmp, "profiled")]
+        profiled = {}
+        busy, _ = device_busy_ms(torch, lambda: profiled.update(run=train_torch.main(prof_argv)))
+        prof = profiled.pop("run")["summaries"][0]
+        epoch_ms = prof["seconds"] * 1e3
+        measured("CLI train epoch again under torch.profiler (the card traced alone)",
+                 f"device busy {busy / prof['batches']:.2f} ms per batch in a {epoch_ms / prof['batches']:.2f} ms "
+                 f"batch, card {1 - busy / epoch_ms:.1%} idle over the epoch")
+
+        # 2. evaluate the untrained model (the CLI's initialisation, no
+        # --weight), then the checkpoint
+        untrained = evaluate_torch.main(["--config", config, "--dataset", "synthetic", "--no_save_top_k",
+                                         "--exp_dir", os.path.join(tmp, "eval_untrained")])
+        reset_counts(mods, records)
+        t0 = time.perf_counter()
+        result = evaluate_torch.main(["--config", config, "--weight", ckpt, "--dataset", "synthetic",
+                                      "--exp_dir", os.path.join(tmp, "eval")])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_counts = read_counts(mods, records)
+        test_ds, eval_batch = result["test_ds"], evaluate_torch.get_args([]).batch_size
+        descs = test_ds.scene.global_descs
+        forwards = -(-len(test_ds) // eval_batch)
+        check_launches(eval_counts, {k: v * forwards for k, v in FORWARD_LAUNCHES.items()}, "CLI eval")
+        if descs.shape != (len(test_ds), 256) or not np.isfinite(descs).all():
+            raise AssertionError(f"CLI eval: descriptors {descs.shape} not finite ({len(test_ds)}, 256)")
+        norm_err = float(np.abs(np.linalg.norm(descs, axis=-1) - 1).max())
+        if norm_err > 1e-5:
+            raise AssertionError(f"CLI eval: descriptors not unit-norm (max |norm - 1| = {norm_err})")
+        if result["num_pairs"] != 2 or not os.path.exists(result["top_k_path"]):
+            raise AssertionError(f"CLI eval: {result['num_pairs']} trip pairs, top-k dump "
+                                 f"{result.get('top_k_path')}")
+        on_card = test_ds.get_recall_precision(top_k=25)
+        test_ds.scene.device = "cpu"
+        on_cpu = test_ds.get_recall_precision(top_k=25)
+        for pair, res in on_card.items():
+            if (res.recall[0], res.one_percent_recall) != (on_cpu[pair].recall[0], on_cpu[pair].one_percent_recall):
+                raise AssertionError(f"CLI eval, trips {pair}: recall@1 and 1% recall on the card "
+                                     f"{res.recall[0]}, {res.one_percent_recall} differ from the CPU's "
+                                     f"{on_cpu[pair].recall[0]}, {on_cpu[pair].one_percent_recall}")
+        measured(f"CLI evaluate_torch.py on the checkpoint, {len(test_ds)} test records",
+                 f"recall@1 {result['recall_at_1']:.2f}, recall@1% {result['ave_one_percent_recall']:.2f} over "
+                 f"{result['num_pairs']} trip pairs (recall@1 and 1% recall equal to the CPU retrieval's on the "
+                 f"same descriptors); the untrained model (no --weight): recall@1 "
+                 f"{untrained['recall_at_1']:.2f}, recall@1% {untrained['ave_one_percent_recall']:.2f}; the whole "
+                 f"eval {eval_s:.2f} s; launches {eval_counts}; descriptors max |norm - 1| {norm_err:.2g}")
+
+        # the eval's descriptor sweep again, timed: one padded batch of the
+        # CLI's size per sweep of the test split
+        sweeps = []
+        for _ in range(EVAL_REPEATS + 1):
+            t0 = time.perf_counter()
+            test_ds.update_global_descs(result["forward"], batch_size=eval_batch)
+            sweeps.append((time.perf_counter() - t0) * 1e3)
+        sweep_ms = np.array(sweeps[1:])
+        measured(f"CLI eval forward, {EVAL_REPEATS} sweeps of the {len(test_ds)} test records after a warm-up, "
+                 f"{forwards} padded batch of {eval_batch} each (clouds read, forward, descriptors fetched)",
+                 f"median {np.median(sweep_ms):.4f} ms per sweep (min {sweep_ms.min():.4f}, max "
+                 f"{sweep_ms.max():.4f}): {np.median(sweep_ms) / (forwards * eval_batch):.4f} ms per batch slot, "
+                 f"{np.median(sweep_ms) / len(test_ds):.4f} ms per record; the CLI's own timer, one cold batch: "
+                 f"{result['desc_time']['mean_ms']:.4f} ms per slot")
+
+        # 3. refresh the train descriptors and mine hard negatives on the card
+        train_ds, model = run["train_ds"], run["state"].model
+        refresh_batch = 36
+        modes = []
+        hook = model.register_forward_pre_hook(lambda module, args: modes.append(module.training))
+        if not model.training:
+            raise AssertionError("CLI: the model is not in train mode after training")
+        reset_counts(mods, records)
+        try:
+            train_ds.update_global_descs(run["forward"], batch_size=refresh_batch)
+        finally:
+            hook.remove()
+        torch.cuda.synchronize()
+        refresh_counts = read_counts(mods, records)
+        check_launches(refresh_counts,
+                       {k: v * -(-len(train_ds) // refresh_batch) for k, v in FORWARD_LAUNCHES.items()},
+                       "descriptor refresh")
+        if not modes or any(modes) or not model.training:
+            raise AssertionError(f"C-2: the refresh ran in train mode ({modes}) or left the model in eval mode")
+        t0 = time.perf_counter()
+        train_ds.mine_hard_negatives(np.random.RandomState(0))
+        mine_ms = (time.perf_counter() - t0) * 1e3
+        lists = dict(train_ds.scene.hard_negative_indices)
+        mined = check_mined(np, retrieval, train_ds, lists)
+        # a control: each list's last pick swapped for its query's farthest
+        # negative must fail the check
+        descs = train_ds.scene.global_descs.astype(np.float64)
+        wrong = {}
+        for q, got in lists.items():
+            negs = [n for n in train_ds.scene.get_tuple(q, -1, train_ds.scene.data_cfg["skip_trip_itself"])
+                    .negative_indices if n not in got]
+            far = max(negs, key=lambda n: ((descs[n] - descs[q]) ** 2).sum()) if got and negs else None
+            wrong[q] = got[:-1] + [far] if far is not None else got
+        try:
+            check_mined(np, retrieval, train_ds, wrong)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError("the mining check passed lists that end in their farthest negative")
+        # the same mining on seeded random unit descriptors, whose distances
+        # lie further apart than the rounding bound: the check then holds
+        # most ranks exactly
+        scene, trained = train_ds.scene, train_ds.scene.global_descs
+        noise = np.random.RandomState(3).randn(*trained.shape).astype(np.float32)
+        scene.global_descs = noise / np.linalg.norm(noise, axis=1, keepdims=True)
+        train_ds.mine_hard_negatives(np.random.RandomState(0))
+        spread = check_mined(np, retrieval, train_ds, dict(scene.hard_negative_indices))
+        scene.global_descs = trained
+        scene.hard_negative_indices.update(lists)
+        for what, m in (("the trained model's", mined), ("random unit", spread)):
+            spreads = np.array(m["spreads"])
+            say(f"CLI mining on {what} descriptors, {m['lists']} queries: {m['equal']} lists equal to "
+                f"the CPU retrieval's; of {m['positions']} ranks, {m['near']} at an exact near-tie (within "
+                f"{m['tol']:.3g}, twice the f32 rounding bound of a distance over 256 components) and "
+                f"{m['differ']} of those differing, every other rank equal, every pick within {m['tol']:.3g} of "
+                f"its rank's exact distance; exact distance from the k-th to the last candidate: min "
+                f"{spreads.min():.4g}, median {np.median(spreads):.4g}; at most {m['within']} candidates past "
+                f"the k-th within the tolerance of it; smallest gap between the k-th and the next: {m['gap']:.3g}")
+        say(f"CLI refresh and mining: the refresh ran the model in eval mode ({len(modes)} forwards) and left it "
+            f"in train mode; mining on the card {mine_ms:.2f} ms; lists ending in their farthest negative fail "
+            f"the check; launches {refresh_counts}")
+
+        # the eval batch and a refresh batch through the plain versions: K1
+        # and K2 at these batch sizes take layouts that phases 2-5 do not
+        # hold (``ops.knn.lanes_for`` picks the lanes by the batch)
+        dev = next(model.parameters()).device
+        for what, ds, size in (("eval batch", test_ds, eval_batch), ("refresh batch", train_ds, refresh_batch)):
+            check_level_shapes(torch, mods, dev, size, f"the CLI's {what}")
+            idx = list(range(min(size, len(ds))))
+            clouds, _ = ds.scene.get_clouds(idx)
+            clouds = np.concatenate([clouds, np.repeat(clouds[-1:], size - len(idx), 0)])
+            _, err = check_against_plain(torch, mods, records, model, torch.as_tensor(clouds, device=dev),
+                                         f"CLI {what} of {size}")
+            say(f"CLI {what} of {size} clouds: provenance indices equal to the plain path, descriptor max abs "
+                f"err {err:.3g}")
+        if not model.training:
+            raise AssertionError("CLI: the plain-path check left the model in eval mode")
+    return train_counts, eval_counts, refresh_counts
 
 
 def main():
@@ -890,12 +1284,14 @@ def main():
     records = phase_kernels(torch, ops, mods, dev) + phase_emd_kernels(torch, ops, mods, dev)
     serving_counts = phase_serving(torch, mods, records, dev)
     emd_counts, chunked_counts = phase_emd(torch, ops, mods, records, dev)
-    center_counts, step_counts = phase_train(torch, mods, records, dev)
+    center_counts, step_counts, step_ms = phase_train(torch, mods, records, dev)
+    cli_counts = phase_cli(torch, mods, records, step_ms)
 
     # each kernel's launches on its paths: K1-K3 serving, K6 emd_loss, K4
-    # the row-chunked auction, K1 and K2 the train step and its centres
-    # (each run counts only its own kernels)
-    paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts)
+    # the row-chunked auction, K1 and K2 the train step and its centres,
+    # and the CLIs' epoch, eval and refresh (each run counts only its own
+    # kernels)
+    paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts, *cli_counts)
     launches = {name: sum(counts[name] for counts in paths) for name in serving_counts}
     # K5 (``topk_extract_pair``) is K3's function by K3's kernel, on no path
     # (the JAX package dispatches it nowhere): its line repeats K3's times

@@ -1,0 +1,173 @@
+#!/usr/bin/env python
+"""Evaluation CLI of the PyTorch/CUDA port (``patchaugnet_tpu_torch``).
+
+The port's counterpart of ``evaluate.py``, with its flags and its
+``CONFIG_TABLE``: model_type -> config resolution, checkpoint load, then
+whole-database descriptor extraction (timed), per-trip-pair
+recall/precision, and the top-k feature-space dump (top_k=300), which
+runs by default. ``--weight`` is a checkpoint of ``train_torch.py``. It
+runs on the card; ``--platform cpu`` runs it on the CPU, and without a
+CUDA device and without that flag it exits with a message.
+
+Not ported, each refused with the ROADMAP item that brings it: models
+other than ``patch_aug_net`` (A7, A8, A10), reference ``.pth`` and JAX
+orbax weights (A12), ``--devices`` above 1 (A11), ``--precision
+bfloat16`` (A3).
+
+Usage:
+  python evaluate_torch.py --model_type patch_aug_net \
+      --weight exp/patch_aug_net/saved_model/train_epoch_29_end --dataset oxford
+  python evaluate_torch.py --model_type patch_aug_net --dataset synthetic   # random init smoke
+"""
+import argparse
+import os
+import pickle
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+CONFIG_TABLE = {
+    "patch_aug_net": "configs/patch_aug_net.yaml",
+    "pptnet": "configs/pptnet_origin.yaml",
+    "pptnet_l2_norm": "configs/pptnet_origin.yaml",
+    "pointnet_vlad": "configs/pointnet_vlad.yaml",
+    "minkloc3dv2": "configs/minkloc3dv2.yaml",
+}
+UNPORTED_MODELS = {"pptnet": "A7", "pptnet_l2_norm": "A7", "pointnet_vlad": "A8", "minkloc3dv2": "A10"}
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description="Place Recognition Evaluation (PyTorch/CUDA port)")
+    p.add_argument("--model_type", type=str, default="patch_aug_net",
+                   choices=sorted(CONFIG_TABLE))
+    p.add_argument("--config", type=str, default=None,
+                   help="override the model_type -> config resolution")
+    p.add_argument("--weight", type=str, default=None, help="checkpoint of train_torch.py")
+    p.add_argument("--dataset", type=str, default="oxford")
+    p.add_argument("--exp_dir", type=str, default="exp")
+    p.add_argument("--batch_size", type=int, default=100)
+    p.add_argument("--top_k", type=int, default=300, help="feature-space dump size")
+    # the reference always runs the top-k dump before recall
+    # (evaluate.py:171); opt out rather than in
+    p.add_argument("--no_save_top_k", action="store_true",
+                   help="skip the top-k rerank dump before recall")
+    p.add_argument("--top_k_space", type=str, default="feat",
+                   choices=["feat", "euc"], help="top-k dump space")
+    p.add_argument("--no_save_descs", action="store_true",
+                   help="skip the per-record global/local descriptor store")
+    p.add_argument("--platform", type=str, default="gpu", choices=["gpu", "cpu"],
+                   help="gpu (the default: the CUDA card) or cpu")
+    p.add_argument("--devices", type=int, default=1,
+                   help="devices for descriptor extraction (only 1 is ported)")
+    p.add_argument("--precision", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype of the forward (only float32 is ported)")
+    return p.parse_args(argv)
+
+
+def refuse_unported(args):
+    """Raise ``NotImplementedError`` for what the port does not have yet."""
+    if args.model_type in UNPORTED_MODELS:
+        raise NotImplementedError(
+            f"model_type {args.model_type!r} is not ported yet (ROADMAP {UNPORTED_MODELS[args.model_type]})")
+    if args.devices > 1:
+        raise NotImplementedError("--devices above 1: sharded eval is not ported yet (ROADMAP A11)")
+    if args.precision != "float32":
+        raise NotImplementedError("--precision bfloat16 is not ported yet (ROADMAP A3, COMPUTE_DTYPE)")
+    if args.weight and (args.weight.endswith(".pth") or os.path.isdir(args.weight)):
+        raise NotImplementedError(
+            f"--weight {args.weight}: reference .pth and JAX orbax weights are not read yet (ROADMAP A12); "
+            f"pass a checkpoint of train_torch.py")
+
+
+def main(argv=None):
+    """Evaluate as ``evaluate.py`` does; returns the eval's result (recall,
+    1% recall, descriptor time), with ``test_ds`` (its descriptors in
+    ``test_ds.scene.global_descs``), the eval's ``forward`` and
+    ``top_k_path`` where the dump went."""
+    args = get_args(argv)
+    from patchaugnet_tpu_torch.serving import platform_device
+
+    device = platform_device(args.platform)
+    refuse_unported(args)
+
+    import torch
+
+    from patchaugnet_tpu_torch import data, train
+    from patchaugnet_tpu_torch.configs import load_config
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import training_init_
+    from patchaugnet_tpu_torch.utils import get_logger
+
+    cfg = load_config(args.config or CONFIG_TABLE[args.model_type])
+    cfg["model_type"] = args.model_type
+    cfg["dataset"] = args.dataset
+
+    logger = get_logger(os.path.join(args.exp_dir, args.model_type, "eval"))
+    logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+
+    ds_kwargs = dict(
+        num_pos=cfg.get("EVAL_POSITIVES_PER_QUERY", 4),
+        num_neg=cfg.get("EVAL_NEGATIVES_PER_QUERY", 10),
+        device=device,
+    )
+    if cfg["dataset"] == "synthetic":
+        # the synthetic scene regenerates at the config's cloud size, as in
+        # train_torch.py, so checkpoints evaluate on clouds of their size
+        ds_kwargs["num_points"] = cfg["NUM_POINTS"]
+    test_ds = data.PlaceRecognitionDataset(cfg["dataset"], for_training=False, **ds_kwargs)
+    logger.info(f"test records: {len(test_ds)}, trips: {test_ds.scene.trip_names}")
+
+    # built as train_torch.py builds it (with the patch decoder where the
+    # config trains one) so that its checkpoints restore exactly; the eval
+    # forward never runs the decoder
+    model = training_init_(get_model(args.model_type, cfg),
+                           torch.Generator().manual_seed(cfg.get("MANUAL_SEED", 123)))
+    state = train.create_train_state(model, cfg, device=device)
+    if args.weight:
+        state, _ = train.restore_checkpoint(args.weight, state)
+        logger.info(f"loaded weights: {args.weight}")
+    else:
+        logger.info("no --weight given: evaluating a randomly initialised model")
+
+    # the per-record descriptor store (reference run(), evaluate.py:170
+    # save=True); synthetic scenes have no data dir
+    save_model_type = (
+        args.model_type
+        if not args.no_save_descs and args.dataset != "synthetic"
+        else None
+    )
+    if save_model_type is not None:
+        forward = train.build_local_forward_fn(state.model, device)
+    else:
+        forward = train.build_forward_fn(state.model, device)
+    out = train.evaluate(
+        forward, test_ds, top_k=25, batch_size=args.batch_size, logger=logger,
+        save_model_type=save_model_type,
+    )
+    out["test_ds"], out["forward"] = test_ds, forward
+    if out.get("desc_time"):
+        logger.info(
+            f"run time: {out['desc_time']['mean_ms']:.2f} +- "
+            f"{out['desc_time']['std_ms']:.2f} ms per cloud"
+        )
+    if not args.no_save_top_k:
+        top = test_ds.find_and_save_top(
+            model_type=args.model_type, top_k=args.top_k,
+            space_type=args.top_k_space,
+            save=args.dataset != "synthetic",
+        )
+        os.makedirs(args.exp_dir, exist_ok=True)
+        path = os.path.join(
+            args.exp_dir,
+            f"top_k_{args.top_k_space}_{args.model_type}_{args.dataset}.pickle",
+        )
+        with open(path, "wb") as f:
+            pickle.dump(top, f)
+        out["top_k_path"] = path
+        logger.info(f"saved top-k dump: {path}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -2,12 +2,18 @@
 
 ``PATCH_AUG_NET`` is a copy of the model keys of
 ``configs/patch_aug_net.yaml`` (the full-width PatchAugNet that the
-descriptor benchmark serves), and ``PATCH_AUG_NET_TRAIN`` adds its
-training keys (the tuple batch, margins, loss flags and weights,
-optimizer and schedule, the a2b table sizes), kept here so that the port
-needs neither PyYAML nor the JAX package's entry modules. A test holds
-both equal to the YAML file.
+descriptor benchmark serves). ``PATCH_AUG_NET_TRAIN`` holds every key of
+that file: the model keys, the training keys (the tuple batch, margins,
+loss flags and weights, optimizer and schedule, the a2b table sizes) and
+the keys the CLIs read (the seed, the experiment directory, the eval
+tuple sizes, the dataset). ``TINY_SMOKE`` is ``configs/tiny_smoke.yaml``,
+the CPU smoke configuration. They are kept here so that the port needs
+neither PyYAML nor the JAX package's entry modules; a test holds each
+equal to its YAML file.
 """
+import copy
+import os
+from typing import Any, Dict
 
 PATCH_AUG_NET = dict(
     model_type="patch_aug_net",
@@ -51,4 +57,46 @@ PATCH_AUG_NET_TRAIN = dict(
     LOSS_IGNORE_ZERO_BATCH=False,
     A2B_MAX_ROWS=2048,
     A2B_MAX_PAIRS=16,
+    MANUAL_SEED=123,
+    USE_SPA_ATT_AFTER_FP=True,
+    EXP_DIR="exp",
+    DATA_AUGMENTATION=True,
+    EVAL_BATCH_SIZE=1,
+    EVAL_POSITIVES_PER_QUERY=4,
+    EVAL_NEGATIVES_PER_QUERY=10,
+    dataset="oxford",
 )
+
+TINY_SMOKE = dict(
+    PATCH_AUG_NET_TRAIN,
+    NUM_POINTS=128,
+    MAX_SAMPLES=[8, 32, 128],
+    SAMPLING=[32, 8, 4],
+    KNN=[8, 8, 4],
+    TRAIN_BATCH_SIZE=2,
+    TRAIN_NEGATIVES_PER_QUERY=4,
+    MAX_EPOCH=1,
+    A2B_MAX_ROWS=64,
+    A2B_MAX_PAIRS=4,
+    dataset="synthetic",
+)
+
+# the configuration files the port knows without PyYAML, by file name
+KNOWN_CONFIGS = {"patch_aug_net.yaml": PATCH_AUG_NET_TRAIN, "tiny_smoke.yaml": TINY_SMOKE}
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    """A configuration file as a dict: read with PyYAML where it imports,
+    else the port's copy of a known file (``KNOWN_CONFIGS``, by file name).
+    Any other file without PyYAML raises ``ImportError``."""
+    try:
+        import yaml
+    except ImportError:
+        known = KNOWN_CONFIGS.get(os.path.basename(path))
+        if known is None:
+            raise ImportError(
+                f"reading {path} needs PyYAML (the 'yaml' package), which is not installed; without it "
+                f"the port knows only {sorted(KNOWN_CONFIGS)}") from None
+        return copy.deepcopy(known)
+    with open(path) as f:
+        return yaml.safe_load(f)

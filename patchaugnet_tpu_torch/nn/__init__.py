@@ -1,5 +1,6 @@
 """Building blocks of PatchAugNet (torch modules)."""
-from .core import BN_EPS, BN_MOMENTUM, MLP, BatchNorm, SharedMLP, l2_normalize, seeded_init_
+from .core import (BN_EPS, BN_MOMENTUM, MLP, BatchNorm, SharedMLP, l2_normalize, seeded_init_,
+                   training_init_)
 from .pointnet import PointNetDecoder
 from .attention import AdaptiveFeatureAggregator, MLPAttention
 from .vlad import GatingContext, NetVLADBase, SpatialPyramidNetVLAD
@@ -12,6 +13,7 @@ __all__ = [
     "MLP",
     "l2_normalize",
     "seeded_init_",
+    "training_init_",
     "MLPAttention",
     "AdaptiveFeatureAggregator",
     "NetVLADBase",

@@ -130,3 +130,19 @@ def seeded_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 value = torch.randn(shape, generator=generator) / fan ** 0.5
             t.copy_(value.to(t.dtype))
     return model
+
+
+@torch.no_grad()
+def training_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """A model as training starts from it (the CLIs' initialisation, where
+    the JAX CLIs call ``model.init``): the weights of :func:`seeded_init_`
+    (normal with std ``1/sqrt(fan_in)``), zero biases, and every BatchNorm
+    at its defaults (scale 1, bias 0, running mean 0, running variance 1)."""
+    seeded_init_(model, generator)
+    for module in model.modules():
+        for name, t in [*module.named_parameters(recurse=False), *module.named_buffers(recurse=False)]:
+            if name in ("bias", "running_mean"):
+                t.zero_()
+            elif isinstance(module, BatchNorm) and name in ("weight", "running_var"):
+                t.fill_(1.0)
+    return model

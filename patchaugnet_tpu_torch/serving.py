@@ -6,12 +6,15 @@ Counterparts of ``build_forward_fn`` / ``build_local_forward_fn`` of
 ``(global, local, center_idx)`` with local = the second-to-last
 feature-propagation level and centre indices = level-1 centres in the
 input cloud. Each batch runs under ``torch.inference_mode()`` on the
-model's device. (The JAX package's exported artifact has no counterpart
-yet.)
+model's device, with the model in eval mode whatever mode it was left
+in (a train step puts it in train mode), and leaves that mode as it was:
+the JAX forwards pass ``train=False`` on every call. (The JAX package's
+exported artifact has no counterpart yet.)
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple, Union
+import contextlib
+from typing import Callable, Iterator, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,8 +42,20 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
 
 def _prepare(model: nn.Module, device) -> torch.device:
     device = resolve_device(device)
-    model.to(device).eval()
+    model.to(device)
     return device
+
+
+@contextlib.contextmanager
+def _eval_mode(model: nn.Module) -> Iterator[None]:
+    """Eval mode and no autograd for one call; the model's mode is restored."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            yield
+    finally:
+        model.train(was_training)
 
 
 def build_forward_fn(model: nn.Module, device: Union[str, torch.device] = "cuda") -> Callable:
@@ -48,7 +63,7 @@ def build_forward_fn(model: nn.Module, device: Union[str, torch.device] = "cuda"
     device = _prepare(model, device)
 
     def forward(clouds: Clouds) -> torch.Tensor:
-        with torch.inference_mode():
+        with _eval_mode(model):
             x = torch.as_tensor(clouds, dtype=torch.float32, device=device)
             return model(x).global_desc
 
@@ -60,9 +75,21 @@ def build_local_forward_fn(model: nn.Module, device: Union[str, torch.device] = 
     device = _prepare(model, device)
 
     def forward(clouds: Clouds) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        with torch.inference_mode():
+        with _eval_mode(model):
             x = torch.as_tensor(clouds, dtype=torch.float32, device=device)
             out = model(x)
             return out.global_desc, out.fp_features[-2], out.center_idx_origin[0]
 
     return forward
+
+
+def platform_device(platform: str) -> torch.device:
+    """The device of a CLI's ``--platform``: ``gpu`` (the card, the default
+    of the CLIs) or ``cpu``. Exits with a message when the card is asked
+    for and there is none: the CLIs never fall back to the CPU."""
+    if platform == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this command runs on an NVIDIA GPU; pass --platform cpu to run it on "
+                         "the CPU")
+    return resolve_device("cuda")

@@ -1,5 +1,5 @@
 """Training: the train state, the optimizer and its schedule,
-checkpoints, and the train step of PatchAugNet."""
+checkpoints, the train step of PatchAugNet, and the epoch loops."""
 from .state import (
     TrainState,
     create_train_state,
@@ -8,6 +8,7 @@ from .state import (
     restore_checkpoint,
     save_checkpoint,
 )
+from .loop import HARD_NEG_EPOCH, METRIC_FETCH_LAG, evaluate, prepare_patch_inputs, train_one_epoch
 from .step import (
     build_center_fn,
     build_forward_fn,
@@ -30,4 +31,9 @@ __all__ = [
     "build_local_forward_fn",
     "build_center_fn",
     "empty_patch_inputs",
+    "prepare_patch_inputs",
+    "train_one_epoch",
+    "evaluate",
+    "HARD_NEG_EPOCH",
+    "METRIC_FETCH_LAG",
 ]

@@ -1,0 +1,205 @@
+"""The port's epoch loop and CLIs, on the CPU.
+
+- ``prepare_patch_inputs`` with the JAX centres and with the port's
+  (``train.build_center_fn`` on the CPU): tables and mask equal;
+- ``train.evaluate`` on the tiny configuration, with the JAX model's
+  weights carried over by ``compat.load_jax_variables``: descriptors
+  within 1e-4, recall and 1% recall equal to the JAX package's
+  ``train.evaluate``;
+- a smoke of ``train_torch.py`` (an epoch of two batches, then ``--resume``)
+  and ``evaluate_torch.py`` on the tiny configuration, in subprocesses
+  where pandas, sklearn, PyYAML, protobuf, TensorBoard, JAX and the JAX
+  package do not import, as on the card's machine;
+- what the CLIs refuse: no CUDA device without ``--platform cpu``, and each
+  option that is not ported.
+"""
+import glob
+import json
+import os
+import random
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from patchaugnet_tpu import data as jdata
+from patchaugnet_tpu import train as jtrain
+from patchaugnet_tpu.models import PatchAugNet as JaxPatchAugNet
+
+from patchaugnet_tpu_torch import configs, data, serving, train
+from patchaugnet_tpu_torch.compat import load_jax_variables
+from patchaugnet_tpu_torch.models import PatchAugNet
+
+import evaluate_torch
+import train_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = configs.TINY_SMOKE
+CPU = "cpu"
+# runs a script as on the card's machine: these packages do not import
+_BLOCKED_RUN = """
+import runpy, sys
+for name in ("pandas", "sklearn", "yaml", "google.protobuf", "tensorboard", "jax", "jaxlib", "flax",
+             "patchaugnet_tpu"):
+    sys.modules[name] = None
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _run(*args, timeout=300):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    return subprocess.run([sys.executable, "-c", _BLOCKED_RUN, *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+@pytest.mark.parametrize("epoch", [0, 11], ids=["warm-up", "hard-negative-patches"])
+def test_prepare_patch_inputs_matches_jax(epoch):
+    """The tables of one synthetic batch at the tiny configuration, the
+    centres from each side's ``build_center_fn``; after epoch 10 the
+    negatives come from the bad-far lists."""
+    cfg = dict(TINY)
+    kw = dict(num_pos=cfg["TRAIN_POSITIVES_PER_QUERY"], num_neg=cfg["TRAIN_NEGATIVES_PER_QUERY"],
+              load_overlap_indices=True, num_points=cfg["NUM_POINTS"], seed=3)
+    jbatch = next(jdata.PlaceRecognitionDataset("synthetic", True, **kw).iter_epoch(2))
+    pbatch = next(data.PlaceRecognitionDataset("synthetic", True, device=CPU, **kw).iter_epoch(2))
+    np.testing.assert_array_equal(jbatch.clouds, pbatch.clouds)
+    random.seed(9)
+    np.random.seed(9)
+    jcorr, jmask = jtrain.prepare_patch_inputs(jbatch, jtrain.build_center_fn(cfg["SAMPLING"][0]), cfg, epoch)
+    pcorr, pmask = train.prepare_patch_inputs(pbatch, train.build_center_fn(cfg["SAMPLING"][0], device=CPU), cfg,
+                                              epoch, random.Random(9), np.random.RandomState(9))
+    for name in jcorr._fields[:7]:
+        np.testing.assert_array_equal(np.asarray(getattr(jcorr, name)), getattr(pcorr, name).numpy(), err_msg=name)
+    np.testing.assert_array_equal(np.asarray(jmask), pmask.numpy())
+    assert int(pcorr.row_valid.sum()) > 0 and int(pmask.sum()) == 6
+
+
+def _random_batch_stats(tree, rng):
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out[key] = _random_batch_stats(val, rng)
+        elif key == "var":
+            out[key] = (rng.rand(*val.shape) + 0.5).astype(np.float32)
+        else:
+            out[key] = (rng.randn(*val.shape) * 0.2).astype(np.float32)
+    return out
+
+
+def test_evaluate_matches_jax():
+    """The eval of the synthetic test split (48 records in two trips) on
+    the same weights: descriptors within 1e-4, recall@1..25, precision@1
+    and 1% recall averaged over the trip pairs equal."""
+    kw = dict(num_pos=TINY["EVAL_POSITIVES_PER_QUERY"], num_neg=TINY["EVAL_NEGATIVES_PER_QUERY"],
+              num_points=TINY["NUM_POINTS"])
+    jds = jdata.PlaceRecognitionDataset("synthetic", False, **kw)
+    pds = data.PlaceRecognitionDataset("synthetic", False, device=CPU, **kw)
+    jm = JaxPatchAugNet(param=TINY, use_a2a_recon=False)
+    variables = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                                         jnp.zeros((2, TINY["NUM_POINTS"], 3))))
+    variables = {"params": variables["params"],
+                 "batch_stats": _random_batch_stats(variables["batch_stats"], np.random.RandomState(1))}
+    want = jtrain.evaluate(variables, jtrain.build_forward_fn(jm, TINY), jds, top_k=25, batch_size=36)
+    model = load_jax_variables(PatchAugNet(TINY), variables)
+    got = train.evaluate(serving.build_forward_fn(model, device=CPU), pds, top_k=25, batch_size=36)
+    np.testing.assert_allclose(jds.scene.global_descs, pds.scene.global_descs, atol=1e-4)
+    assert got["num_pairs"] == want["num_pairs"] == 2
+    np.testing.assert_array_equal(got["ave_recall"], want["ave_recall"])
+    # precision past rank 1 counts every positive in the top 25, whose order
+    # among near-equal descriptors (the synthetic places' pairs) follows
+    # differences of 1e-7; recall, the eval's metric, takes only the first
+    assert got["ave_precision"][0] == want["ave_precision"][0]
+    assert got["ave_one_percent_recall"] == want["ave_one_percent_recall"]
+    assert got["recall_at_1"] == want["recall_at_1"] and got["lost_sum"] == want["lost_sum"]
+    assert got["desc_time"]["mean_ms"] >= 0
+
+
+def test_cli_smoke_train_resume_evaluate(tmp_path):
+    """train_torch.py for an epoch of two batches, ``--resume`` from its
+    checkpoint for two epochs (the JAX CLI resumes at the saved epoch),
+    then evaluate_torch.py on the last checkpoint; every logged loss
+    finite, the optimizer's count carried through the resume."""
+    exp = str(tmp_path / "exp")
+    common = ["--config", "configs/tiny_smoke.yaml", "--dataset", "synthetic", "--platform", "cpu",
+              "--max-batches", "2", "--exp_dir", exp]
+    proc = _run("train_torch.py", *common, "--epochs", "1")
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    saved = os.path.join(exp, "patch_aug_net", "saved_model")
+    first = os.path.join(saved, "train_epoch_0_end")
+    assert torch.load(first)["step"] == 2
+    proc = _run("train_torch.py", *common, "--epochs", "2", "--resume", first)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "Resumed from" in proc.stderr
+    last = torch.load(os.path.join(saved, "train_epoch_1_end"))
+    assert last["step"] == 6 and last["epoch"] == 1
+    losses = []
+    for path in glob.glob(os.path.join(exp, "patch_aug_net", "events", "*", "metrics.jsonl")):
+        with open(path) as f:
+            losses += [json.loads(line) for line in f if '"iter_loss"' in line]
+    assert len(losses) == 6 and all(np.isfinite(r["train_total"]) for r in losses)
+
+    proc = _run("evaluate_torch.py", "--config", "configs/tiny_smoke.yaml", "--dataset", "synthetic",
+                "--platform", "cpu", "--weight", os.path.join(saved, "train_epoch_1_end"), "--exp_dir", exp)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "Average Recall @1:" in proc.stderr and "loaded weights" in proc.stderr
+    assert os.path.exists(os.path.join(exp, "top_k_feat_patch_aug_net_synthetic.pickle"))
+
+
+def test_train_cli_needs_cuda_or_platform_cpu(tmp_path):
+    """Without a card and without ``--platform cpu`` the CLI exits non-zero
+    with a message, before it builds anything; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default platform works")
+    proc = _run("train_torch.py", "--config", "configs/tiny_smoke.yaml", "--dataset", "synthetic",
+                "--exp_dir", str(tmp_path / "exp"))
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "--platform cpu" in proc.stderr
+    assert not os.path.exists(tmp_path / "exp")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        evaluate_torch.main(["--dataset", "synthetic"])
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--devices", "2"], "A11"),
+    (["--precision", "bfloat16"], "A3"),
+    (["--print-flops"], "A12"),
+    (["--config", os.path.join(REPO, "configs", "minkloc3dv2.yaml")], "A10"),
+])
+def test_train_cli_refuses_what_is_not_ported(tmp_path, flags, item):
+    argv = ["--config", os.path.join(REPO, "configs", "tiny_smoke.yaml"), "--dataset", "synthetic", "--platform", "cpu",
+            "--exp_dir", str(tmp_path / "exp"), *flags]
+    with pytest.raises(NotImplementedError, match=item):
+        train_torch.main(argv)
+
+
+def test_evaluate_cli_refuses_what_is_not_ported(tmp_path):
+    base = ["--dataset", "synthetic", "--platform", "cpu", "--exp_dir", str(tmp_path)]
+    for flags, item in ((["--model_type", "pptnet"], "A7"), (["--model_type", "pointnet_vlad"], "A8"),
+                        (["--weight", "model.pth"], "A12"), (["--weight", str(tmp_path)], "A12"),
+                        (["--devices", "2"], "A11")):
+        with pytest.raises(NotImplementedError, match=item):
+            evaluate_torch.main(base + flags)
+
+
+def test_config_without_yaml(monkeypatch):
+    """Without PyYAML a known file name resolves to the port's copy; any
+    other file raises and names the known ones."""
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cfg = configs.load_config(os.path.join(REPO, "configs", "tiny_smoke.yaml"))
+    assert cfg == configs.TINY_SMOKE and cfg is not configs.TINY_SMOKE
+    with pytest.raises(ImportError, match="tiny_smoke.yaml"):
+        configs.load_config(os.path.join(REPO, "configs", "pptnet_origin.yaml"))

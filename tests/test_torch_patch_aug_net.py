@@ -6,6 +6,7 @@ are carried into the port with ``load_jax_variables``; both run in eval
 mode on the same numpy clouds. Also: the serving entry points, the
 config copy, and that no port module imports JAX or the JAX package.
 """
+import copy
 import os
 import subprocess
 import sys
@@ -88,6 +89,33 @@ def test_serving_entry_points_on_cpu(carried):
     np.testing.assert_array_equal(np.asarray(ref.center_idx_origin[0]), centers.numpy())
 
 
+def test_serving_forward_runs_in_eval_mode_after_a_train_step():
+    """C-2: the forward built before training serves descriptors in eval
+    mode after a real train step left the model in train mode, equal to a
+    freshly prepared eval forward's, and changes no BatchNorm statistic;
+    the model is back in train mode after the call."""
+    cfg = dict(configs.PATCH_AUG_NET_TRAIN, **TINY, TRAIN_BATCH_SIZE=1, TRAIN_NEGATIVES_PER_QUERY=1,
+               A2B_MAX_ROWS=64, A2B_MAX_PAIRS=4)
+    model = seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(3))
+    state = train.create_train_state(model, cfg, device="cpu")
+    forward = serving.build_forward_fn(state.model, device="cpu")
+    clouds = torch.from_numpy(np.random.RandomState(4).rand(5, cfg["NUM_POINTS"], 3).astype(np.float32))
+    corr, mask = train.empty_patch_inputs(cfg, 5)
+    mask[:3] = True
+    state, _ = train.build_train_step(state.model, cfg)(state, clouds, corr, mask)
+    assert state.model.training
+    stats = {k: v.clone() for k, v in state.model.state_dict().items() if "running" in k}
+    fresh = copy.deepcopy(state.model)
+    desc = forward(clouds)
+    assert state.model.training
+    for key, value in state.model.state_dict().items():
+        if "running" in key:
+            assert torch.equal(value, stats[key]), key
+    assert torch.equal(desc, serving.build_forward_fn(fresh, device="cpu")(clouds))
+    g, _, _ = serving.build_local_forward_fn(state.model, device="cpu")(clouds)
+    assert torch.equal(g, desc) and state.model.training
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
@@ -133,40 +161,57 @@ def test_config_copy_matches_yaml():
     assert set(configs.PATCH_AUG_NET) == set(FULL_PARAM)
     assert configs.PATCH_AUG_NET == {key: cfg[key] for key in configs.PATCH_AUG_NET}
     # the training keys: patch losses and weights, the tuple batch,
-    # optimizer and schedule, margins, loss flags, a2b table sizes
+    # optimizer and schedule, margins, loss flags, a2b table sizes; and the
+    # keys the CLIs read: the whole file
     assert configs.PATCH_AUG_NET_TRAIN == {key: cfg[key] for key in configs.PATCH_AUG_NET_TRAIN}
     assert set(configs.PATCH_AUG_NET_TRAIN) - set(configs.PATCH_AUG_NET) == {
         "use_hard_negative_patch_mining", "weight_place_recognition", "weight_patch_recon",
         "weight_patch_feature_contrast", "TRAIN_BATCH_SIZE", "TRAIN_POSITIVES_PER_QUERY",
         "TRAIN_NEGATIVES_PER_QUERY", "BASE_LEARNING_RATE", "MOMENTUM", "OPTIMIZER", "MAX_EPOCH",
         "LEARNING_RATE_DECAY", "MARGIN_1", "MARGIN_2", "LOSS_FUNCTION", "LOSS_LAZY",
-        "TRIPLET_USE_BEST_POSITIVES", "LOSS_IGNORE_ZERO_BATCH", "A2B_MAX_ROWS", "A2B_MAX_PAIRS"}
+        "TRIPLET_USE_BEST_POSITIVES", "LOSS_IGNORE_ZERO_BATCH", "A2B_MAX_ROWS", "A2B_MAX_PAIRS",
+        "EXP_DIR", "MANUAL_SEED", "DATA_AUGMENTATION", "EVAL_BATCH_SIZE", "EVAL_POSITIVES_PER_QUERY",
+        "EVAL_NEGATIVES_PER_QUERY", "USE_SPA_ATT_AFTER_FP", "dataset"}
+    assert configs.PATCH_AUG_NET_TRAIN == cfg
+    with open(os.path.join(REPO, "configs", "tiny_smoke.yaml")) as f:
+        assert configs.TINY_SMOKE == yaml.safe_load(f)
+    assert set(configs.KNOWN_CONFIGS) == {"patch_aug_net.yaml", "tiny_smoke.yaml"}
 
 
 _IMPORT_EVERY_MODULE = """
 import sys, pkgutil, importlib
-for name in ("jax", "jaxlib", "flax", "patchaugnet_tpu", "__graft_entry__"):
+# the JAX side, and the packages the card's machine lacks
+blocked = ("jax", "jaxlib", "flax", "patchaugnet_tpu", "__graft_entry__", "pandas", "sklearn", "yaml",
+           "google.protobuf")
+for name in blocked:
     sys.modules[name] = None
 import patchaugnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(patchaugnet_tpu_torch.__path__, "patchaugnet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "patchaugnet_tpu")
+for script in ("train_torch", "evaluate_torch", "create_dataset_torch"):
+    importlib.import_module(script)
+leaked = [m for m in sys.modules if (m.split(".")[0] in blocked or m.startswith("google.protobuf"))
           and sys.modules[m] is not None]
 assert not leaked, leaked
-for name in ("train", "train.state", "train.step", "losses.metric", "losses.patch_contrast", "nn.pointnet"):
+for name in ("train", "train.state", "train.step", "losses.metric", "losses.patch_contrast", "nn.pointnet",
+             "train.loop", "data", "data.dataset_info", "data.pointclouds", "data.retrieval", "data.overlap",
+             "data.query_overlap_pb2", "data.scene_dataset", "data.tuple_dataset", "utils",
+             "utils.logging_util", "utils.meters", "utils.timestamps"):
     assert "patchaugnet_tpu_torch." + name in names, name
 print(len(names))
 """
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module imports with jax, flax and patchaugnet_tpu
-    blocked in ``sys.modules`` (an exact-name block, not a prefix match:
-    ``patchaugnet_tpu`` is a prefix of ``patchaugnet_tpu_torch``), the
-    train slice's among them."""
+    """Every port module and the three root ``*_torch.py`` scripts import
+    with jax, flax and patchaugnet_tpu blocked in ``sys.modules`` (an
+    exact-name block, not a prefix match: ``patchaugnet_tpu`` is a prefix
+    of ``patchaugnet_tpu_torch``), the slices' modules among them; and with
+    pandas, sklearn, PyYAML and protobuf blocked, as the card's machine
+    lacks them."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _IMPORT_EVERY_MODULE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 21
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 35

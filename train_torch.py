@@ -1,0 +1,212 @@
+#!/usr/bin/env python
+"""Training CLI of the PyTorch/CUDA port (``patchaugnet_tpu_torch``).
+
+The port's counterpart of ``train.py``, with its flags: ``--config
+--dataset --resume --eval``, a YAML config with the reference's keys,
+per-epoch checkpoints, the optional per-epoch eval
+(``EVAL_EVERY_N_EPOCHS``), ``--max-batches`` to bound an epoch. It runs on
+the card; ``--platform cpu`` runs it on the CPU, and without a CUDA device
+and without that flag it exits with a message.
+
+Not ported, each refused with the ROADMAP item that brings it: models
+other than ``patch_aug_net`` (A7 PPT-Net, A8 PointNetVLAD, A10
+MinkLoc3Dv2), ``--devices`` above 1 (A11), ``--precision bfloat16`` (A3),
+``--print-flops`` (A12) and ``LOSS_FUNCTION: truncatedsmoothap`` (A9).
+
+Usage:
+  python train_torch.py --config configs/patch_aug_net.yaml --dataset oxford
+  python train_torch.py --config configs/patch_aug_net.yaml --dataset synthetic \
+      --max-batches 5 --epochs 1        # no data on disk needed
+  python train_torch.py --config configs/tiny_smoke.yaml --dataset synthetic \
+      --platform cpu --epochs 1 --max-batches 2
+"""
+import argparse
+import os
+import random
+import sys
+from datetime import datetime
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+# model types of the JAX package that the port does not have yet, by ROADMAP item
+UNPORTED_MODELS = {"pptnet": "A7", "pptnet_l2_norm": "A7", "pointnet_vlad": "A8", "minkloc3dv2": "A10"}
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description="Point Cloud Place Recognition (PyTorch/CUDA port)")
+    p.add_argument("--config", type=str, default="configs/patch_aug_net.yaml")
+    p.add_argument(
+        "--dataset", type=str, default="oxford",
+        help="oxford | university | residential | business | hankou | campus |"
+             " sejong | dcc_* | kitti360_* | synthetic",
+    )
+    p.add_argument("--resume", type=str, default=None)
+    p.add_argument("--eval", action="store_true", help="evaluation only")
+    p.add_argument("--devices", type=int, default=None,
+                   help="data-parallel device count (only 1 is ported)")
+    p.add_argument("--epochs", type=int, default=None, help="override MAX_EPOCH")
+    p.add_argument("--max-batches", type=int, default=None,
+                   help="cap batches per epoch (smoke runs)")
+    p.add_argument("--platform", type=str, default="gpu", choices=["gpu", "cpu"],
+                   help="gpu (the default: the CUDA card) or cpu")
+    p.add_argument("--exp_dir", type=str, default=None,
+                   help="override the config EXP_DIR")
+    p.add_argument("--num-points", type=int, default=None,
+                   help="override NUM_POINTS (and the synthetic scene size)")
+    p.add_argument("--synthetic-noise", type=float, default=None,
+                   help="synthetic dataset only: per-point gaussian noise stddev added to every scene "
+                        "cloud (seeded), so that random-init recall starts low")
+    p.add_argument("--print-flops", action="store_true",
+                   help="print FLOPs at startup (not ported)")
+    p.add_argument("--precision", type=str, default=None, choices=["float32", "bfloat16"],
+                   help="model compute dtype (only float32 is ported)")
+    return p.parse_args(argv)
+
+
+def build_cfg(args):
+    """The config file with the flags' overrides, and the run's directories."""
+    from patchaugnet_tpu_torch.configs import load_config
+
+    cfg = load_config(args.config)
+    cfg["dataset"] = args.dataset
+    cfg["resume"] = args.resume
+    cfg["eval"] = args.eval
+    if args.epochs is not None:
+        cfg["MAX_EPOCH"] = args.epochs
+    if args.exp_dir is not None:
+        cfg["EXP_DIR"] = args.exp_dir
+    if args.num_points is not None:
+        cfg["NUM_POINTS"] = args.num_points
+    if args.precision == "float32":
+        cfg.pop("COMPUTE_DTYPE", None)
+    cfg["event_dir"] = os.path.join(
+        cfg["EXP_DIR"], cfg["model_type"], "events",
+        datetime.now().strftime("%Y-%m-%dT%H-%M-%S"),
+    )
+    cfg["save_path"] = os.path.join(cfg["EXP_DIR"], cfg["model_type"], "saved_model")
+    return cfg
+
+
+def refuse_unported(cfg, args):
+    """Raise ``NotImplementedError`` for what the port does not have yet."""
+    if cfg["model_type"] != "patch_aug_net":
+        item = UNPORTED_MODELS.get(cfg["model_type"], "A7-A10")
+        raise NotImplementedError(f"model_type {cfg['model_type']!r} is not ported yet (ROADMAP {item})")
+    if args.devices is not None and args.devices > 1:
+        raise NotImplementedError("--devices above 1: data-parallel training is not ported yet (ROADMAP A11)")
+    if args.precision == "bfloat16":
+        raise NotImplementedError("--precision bfloat16 is not ported yet (ROADMAP A3, COMPUTE_DTYPE)")
+    if args.print_flops:
+        raise NotImplementedError("--print-flops is not ported yet (ROADMAP A12, utils)")
+    if cfg.get("LOSS_FUNCTION", "").lower() == "truncatedsmoothap":
+        raise NotImplementedError("LOSS_FUNCTION truncatedsmoothap is not ported yet (ROADMAP A9, "
+                                  "train/smoothap.py)")
+
+
+def main(argv=None):
+    """Train (or with ``--eval`` evaluate) as ``train.py`` does. Returns the
+    run: ``cfg``, ``state``, ``train_ds``, ``test_ds``, ``forward``, the
+    per-epoch ``summaries`` and, with ``--eval``, the eval's ``result``."""
+    args = get_args(argv)
+    from patchaugnet_tpu_torch.serving import platform_device
+
+    device = platform_device(args.platform)
+    cfg = build_cfg(args)
+    refuse_unported(cfg, args)
+
+    import numpy as np
+    import torch
+
+    from patchaugnet_tpu_torch import data, train
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import training_init_
+    from patchaugnet_tpu_torch.utils import MetricsWriter, get_logger
+
+    os.makedirs(cfg["save_path"], exist_ok=True)
+    seed = cfg.get("MANUAL_SEED", 123)
+    # the host's draws for the correspondence tables and the mining (the
+    # JAX CLI seeds the global ``random`` and ``np.random`` with this seed)
+    rng, np_rng = random.Random(seed), np.random.RandomState(seed)
+
+    logger = get_logger(cfg["event_dir"])
+    logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    logger.info(cfg)
+    writer = MetricsWriter(cfg["event_dir"])
+
+    use_patches = bool(cfg.get("use_patch_recon") or cfg.get("use_patch_feature_contrast"))
+    ds_kwargs = dict(
+        num_pos=cfg["TRAIN_POSITIVES_PER_QUERY"],
+        num_neg=cfg["TRAIN_NEGATIVES_PER_QUERY"],
+        device=device,
+    )
+    if cfg["dataset"] == "synthetic":
+        ds_kwargs["num_points"] = cfg["NUM_POINTS"]
+    train_ds = data.PlaceRecognitionDataset(
+        cfg["dataset"], for_training=True, load_overlap_indices=use_patches, **ds_kwargs,
+    )
+    test_ds = data.PlaceRecognitionDataset(cfg["dataset"], for_training=False, **ds_kwargs)
+    if args.synthetic_noise:
+        if cfg["dataset"] != "synthetic":
+            raise SystemExit("--synthetic-noise requires --dataset synthetic")
+        for ds in (train_ds, test_ds):
+            r = np.random.RandomState(7)
+            ds.scene._clouds = ds.scene._clouds + (
+                r.randn(*ds.scene._clouds.shape).astype(np.float32) * args.synthetic_noise
+            )
+            ds.scene._pc_cache.clear()
+        logger.info(f"synthetic scene hardened: noise {args.synthetic_noise}")
+    logger.info(
+        f"train records: {len(train_ds)}, test records: {len(test_ds)}, "
+        f"trips: {train_ds.scene.trip_names}"
+    )
+
+    model = training_init_(get_model(cfg["model_type"], cfg), torch.Generator().manual_seed(seed))
+    steps_per_epoch = max(len(train_ds) // cfg["TRAIN_BATCH_SIZE"], 1)
+    state = train.create_train_state(model, cfg, steps_per_epoch=steps_per_epoch, device=device)
+    logger.info(f"Parameters: {sum(p.numel() for p in state.model.parameters()):,}")
+
+    starting_epoch = 0
+    if cfg["resume"]:
+        path = cfg["resume"]
+        if not os.path.exists(path):
+            path = os.path.join(cfg["save_path"], cfg["resume"])
+        state, starting_epoch = train.restore_checkpoint(path, state)
+        logger.info(f"Resumed from {path} at epoch {starting_epoch}")
+
+    step = train.build_train_step(state.model, cfg)
+    forward = train.build_forward_fn(state.model, device)
+    center_fn = train.build_center_fn(cfg["SAMPLING"][0], device) if use_patches else None
+    run = {"cfg": cfg, "state": state, "train_ds": train_ds, "test_ds": test_ds, "forward": forward,
+           "summaries": []}
+
+    if cfg["eval"]:
+        run["result"] = train.evaluate(forward, test_ds, logger=logger, writer=writer, epoch=starting_epoch)
+        writer.close()
+        return run
+
+    total_iterations = 0
+    # the reference evals only on --eval (its per-epoch eval is commented
+    # out, train_place_recognition.py:564-566); EVAL_EVERY_N_EPOCHS turns
+    # it back on, as in the JAX CLI
+    eval_every = cfg.get("EVAL_EVERY_N_EPOCHS", 0)
+    for epoch in range(starting_epoch, cfg["MAX_EPOCH"]):
+        logger.info(f"**** EPOCH {epoch:03d} ****")
+        summary = train.train_one_epoch(
+            state, step, train_ds, cfg, epoch, rng, np_rng,
+            forward_fn=forward, center_fn=center_fn, writer=writer,
+            logger=logger, total_iterations=total_iterations,
+            max_batches=args.max_batches, save_dir=cfg["save_path"],
+        )
+        state = summary.pop("state")
+        total_iterations = summary["total_iterations"]
+        run["summaries"].append(summary)
+        logger.info(f"epoch {epoch}: {summary}")
+        if eval_every and (epoch + 1) % eval_every == 0 and len(test_ds) > 0:
+            train.evaluate(forward, test_ds, logger=logger, writer=writer, epoch=epoch)
+    writer.close()
+    run["state"] = state
+    return run
+
+
+if __name__ == "__main__":
+    main()
