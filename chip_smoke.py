@@ -82,7 +82,24 @@ Phases, each fatal on failure:
    level, and the trained model on those batches through the kernels and
    through the plain versions (provenance indices equal, descriptors
    within 1e-5);
-7. report: one ``{"kernels": [...]}`` line, the card's name and power
+7. families: PPT-Net (``configs.PPTNET_ORIGIN``) and PointNetVLAD
+   (``configs.POINTNET_VLAD``) at full width, seeded random weights: K1 and
+   K2 at PPT-Net's level shapes (SA 4096 -> 1024 -> 256 -> 64 -> 16, k=20;
+   FP 3-NN over 16, 64, 256 and 1024 known points) bit-equal to their plain
+   versions at B=32, 100 and 18 on random and duplicated-grid clouds, the
+   shapes a PatchAugNet forward does not launch timed at B=32; ``pptnet``
+   served (4 requests of 32, 4 K1 and 8 K2 launches per forward, the plain
+   path's provenance indices and descriptors within 1e-5), then
+   descriptors/s at B=32 and B=100; ``pptnet_l2_norm`` on the same weights
+   unit-norm; the PPT-Net train step at its tuple batch of 18 clouds held
+   against the plain kernels from a deep copy (metrics and new BatchNorm
+   statistics within 1e-6), then timed; PointNetVLAD served and its train
+   step at 44 clouds timed, no kernel launched; then for each family
+   ``train_torch.py`` on the synthetic scene for two batches (no overlap
+   tables) and ``evaluate_torch.py`` on its checkpoint (recall@1 and 1%
+   recall equal to the CPU retrieval's; PointNetVLAD's eval takes the
+   global forward);
+8. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -110,6 +127,13 @@ CARD = "unknown card"
 # launches per forward: K1 at the three SA levels, K2 at the three SA and
 # the three FP levels (the 3-NN), K3 nowhere
 FORWARD_LAUNCHES = {"fps": 3, "knn": 6}
+PATCH_LEVELS = (1024, 128, 16)                # PatchAugNet's SA centres (configs/patch_aug_net.yaml)
+PPT_LEVELS = (1024, 256, 64, 16)              # PPT-Net's (configs/pptnet_origin.yaml)
+PPT_LAUNCHES = {"fps": 4, "knn": 8}           # a PPT-Net forward or train step: 4 SA levels, 4 FP levels
+# the provenance indices of each family's output held equal on the kernel and the plain path
+PROVENANCE = {"patch_aug_net": ("center_idx_origin", "sample_idx_origin"), "pptnet": ("center_idx_origin",)}
+FAMILY_BATCHES = (32, 100, 18)                # serving, the eval batch, PPT-Net's tuple batch
+FAMILY_CLI_BATCHES = 2                        # train_torch.py batches per family in phase 7
 EMD_B, EMD_N, EMD_EPS, EMD_ITERS = 4, 4096, 0.02, 1024  # losses/pointnetvlad_loss.py:205-221
 EMD_TAIL_ROWS = 256                                     # the active-set width R at n=4096
 EMD_TAIL_VALID = (256, 240, 224, 208)                   # unassigned rows per cloud in the timed tail
@@ -256,23 +280,25 @@ def chunked_input(torch, ops, gen):
     return -(3.0 - torch.sqrt(ops.pairwise_sqdist(c1[:, :4096], c2)) - cprice[:, None, :])
 
 
-def level_clouds(torch, ops, fps, gen, batch=B):
-    """The forward's point sets at ``batch``: random (batch, 4096, 3) clouds
-    drawn from ``gen``, then the SA levels' FPS chain of 1024, 128 and 16
-    centres (``fps`` is K1's wrapper or its plain version)."""
+def level_clouds(torch, ops, fps, gen, batch=B, levels=PATCH_LEVELS):
+    """A forward's point sets at ``batch``: random (batch, 4096, 3) clouds
+    drawn from ``gen``, then the SA levels' FPS chain (``levels``:
+    PatchAugNet's 1024, 128 and 16 centres, or PPT-Net's 1024, 256, 64 and
+    16; ``fps`` is K1's wrapper or its plain version)."""
     x = [torch.rand(batch, N_POINTS, 3, generator=gen, device=gen.device)]
-    for npoint in (1024, 128, 16):
+    for npoint in levels:
         x.append(ops.gather(x[-1], fps(x[-1], npoint)))
     return x
 
 
 def knn_cases(x):
-    """The forward's six kNN launches as (label, candidates, queries, k):
-    the SA levels' kNN (k=20, queries = the level's centres) and the FP
-    levels' 3-NN (queries = the finer level's points, candidates = the
-    coarser level's)."""
-    return ([(f"SA{lv}", x[lv], x[lv + 1], 20) for lv in range(3)]
-            + [(f"FP{lv}", x[lv + 1], x[lv], 3) for lv in range(3)])
+    """A forward's kNN launches as (label, candidates, queries, k): the SA
+    levels' kNN (k=20, queries = the level's centres) and the FP levels'
+    3-NN (queries = the finer level's points, candidates = the coarser
+    level's)."""
+    levels = range(len(x) - 1)
+    return ([(f"SA{lv}", x[lv], x[lv + 1], 20) for lv in levels]
+            + [(f"FP{lv}", x[lv + 1], x[lv], 3) for lv in levels])
 
 
 def matrix_knn(ops, pts, qry, k):
@@ -590,11 +616,20 @@ def phase_emd_kernels(torch, ops, mods, dev):
     return [k4, k6]
 
 
-def check_against_plain(torch, mods, records, model, clouds, what):
-    """``model`` in eval mode on ``clouds`` through the kernels and through
-    their plain versions: provenance indices equal, global descriptors
-    within 1e-5. The model's mode is restored. Returns the kernels' global
-    descriptors and their max abs error."""
+def check_provenance(torch, ref, plain, family, what):
+    """The provenance indices of ``family``'s outputs (``PROVENANCE``)
+    equal on the kernel path (``ref``) and the plain path, level by level."""
+    for name in PROVENANCE[family]:
+        for level, (a, b) in enumerate(zip(getattr(ref, name), getattr(plain, name), strict=True)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name}[{level}] of the kernel path differs from the plain path")
+
+
+def check_against_plain(torch, mods, records, model, clouds, family, what):
+    """``model`` (of ``family``) in eval mode on ``clouds`` through the
+    kernels and through their plain versions: provenance indices equal,
+    global descriptors within 1e-5. The model's mode is restored. Returns
+    the kernels' global descriptors and their max abs error."""
     training = model.training
     model.eval()
     try:
@@ -607,10 +642,7 @@ def check_against_plain(torch, mods, records, model, clouds, what):
                     raise AssertionError(f"{what}: the plain run launched a kernel")
     finally:
         model.train(training)
-    for name in ("center_idx_origin", "sample_idx_origin"):
-        for level, (a, b) in enumerate(zip(getattr(ref, name), getattr(plain, name))):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{what}: {name}[{level}] of the kernel path differs from the plain path")
+    check_provenance(torch, ref, plain, family, what)
     desc_err = (ref.global_desc - plain.global_desc).abs().max().item()
     if desc_err > 1e-5:
         raise AssertionError(f"{what}: descriptors differ from the plain path's by {desc_err}")
@@ -618,46 +650,59 @@ def check_against_plain(torch, mods, records, model, clouds, what):
 
 
 def phase_serving(torch, mods, records, dev):
-    from patchaugnet_tpu_torch import configs, serving
+    """The full-width PatchAugNet served (``serve``), its descriptors unit-norm."""
+    from patchaugnet_tpu_torch import configs
     from patchaugnet_tpu_torch.models import get_model
     from patchaugnet_tpu_torch.nn import seeded_init_
 
-    model = seeded_init_(get_model("patch_aug_net", configs.PATCH_AUG_NET),
-                         torch.Generator().manual_seed(0))
+    model = seeded_init_(get_model("patch_aug_net", configs.PATCH_AUG_NET), torch.Generator().manual_seed(0))
+    counts, _, descs = serve(torch, mods, records, dev, model, "patch_aug_net", FORWARD_LAUNCHES, seed=1)
+    norm_err = max((d.norm(dim=-1) - 1).abs().max().item() for d in descs)
+    if norm_err > 1e-5:
+        raise AssertionError(f"descriptors not unit-norm (max |norm - 1| = {norm_err})")
+    return counts
+
+
+def serve(torch, mods, records, dev, model, what, launches, seed):
+    """``model`` through ``serving.build_forward_fn``: ``REQUESTS`` requests
+    of B clouds drawn from ``seed``, with ``launches`` kernel launches per
+    forward and no other, finite (B, 256) descriptors equal to the direct
+    forward's, and, where the path launches kernels, the same model through
+    the plain versions (provenance indices equal, descriptors within 1e-5);
+    then descriptors/s at B=32 and B=100 and the peak device memory.
+    Returns the launch counts, the first request's clouds and the served
+    descriptors."""
+    from patchaugnet_tpu_torch import serving
+
     forward = serving.build_forward_fn(model, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     requests = [torch.rand(B, N_POINTS, 3, generator=gen, device=dev) for _ in range(REQUESTS)]
     forward(requests[0])                                  # warm-up
     torch.cuda.synchronize()
-
     reset_counts(mods, records)
     t0 = time.perf_counter()
     descs = [forward(x) for x in requests]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts(mods, records)
-    measured(f"serving {REQUESTS} requests of {B} x {N_POINTS} points",
-             f"{wall * 1e3:.2f} ms, kernel launches {counts}")
-    for rec in records:
-        want = FORWARD_LAUNCHES.get(rec.name, 0) * REQUESTS
-        if counts[rec.name] != want:
-            raise AssertionError(f"{rec.name}: {counts[rec.name]} launches in serving, expected {want}")
-
+    check_launches(counts, {k: v * REQUESTS for k, v in launches.items()}, f"{what} serving")
     for d in descs:
         if d.shape != (B, 256) or not torch.isfinite(d).all():
-            raise AssertionError(f"descriptor batch {tuple(d.shape)} not finite (B, 256)")
-        norm_err = (d.norm(dim=-1) - 1).abs().max().item()
-        if norm_err > 1e-5:
-            raise AssertionError(f"descriptors not unit-norm (max |norm - 1| = {norm_err})")
-
-    ref, desc_err = check_against_plain(torch, mods, records, model, requests[0], f"serving B={B}")
-    served_err = (ref - descs[0]).abs().max().item()
+            raise AssertionError(f"{what}: descriptor batch {tuple(d.shape)} not finite (B, 256)")
+    if launches:
+        direct, desc_err = check_against_plain(torch, mods, records, model, requests[0], what,
+                                               f"{what} serving B={B}")
+        text = f"provenance indices equal to the plain path, descriptor max abs err {desc_err:.3g} (plain)"
+    else:
+        model.eval()
+        with torch.inference_mode():
+            direct = serving.global_desc(model(requests[0]))
+        text = "no kernel on this path"
+    served_err = (direct - descs[0]).abs().max().item()
     if served_err > 1e-5:
-        raise AssertionError(f"served descriptors differ from the direct forward's by {served_err}")
-    say(f"serving: provenance indices equal to the plain path; descriptor max abs err {desc_err:.3g} "
-        f"(plain), {served_err:.3g} (served vs direct)")
-    del ref, descs
-
+        raise AssertionError(f"{what}: served descriptors differ from the direct forward's by {served_err}")
+    measured(f"{what} serving {REQUESTS} requests of {B} x {N_POINTS} points",
+             f"{wall * 1e3:.2f} ms, kernel launches {counts}; {text}; {served_err:.3g} (served vs direct)")
     for batch, iters in THROUGHPUT_BATCHES:
         clouds = torch.rand(batch, N_POINTS, 3, generator=gen, device=dev)
         forward(clouds)
@@ -669,12 +714,11 @@ def phase_serving(torch, mods, records, dev):
         torch.cuda.synchronize()
         sec = (time.perf_counter() - t0) / iters
         if not torch.isfinite(out).all():
-            raise AssertionError(f"B={batch}: non-finite descriptors")
-        peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        measured(f"throughput B={batch}",
-                 f"{batch / sec:.1f} descriptors/s ({sec * 1e3:.2f} ms per batch, "
-                 f"{iters} batches), peak memory {peak:.2f} GiB")
-    return counts
+            raise AssertionError(f"{what} B={batch}: non-finite descriptors")
+        measured(f"{what} throughput B={batch}",
+                 f"{batch / sec:.1f} descriptors/s ({sec * 1e3:.2f} ms per batch, {iters} batches), peak memory "
+                 f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return counts, requests[0], descs
 
 
 def check_launches(counts, want, what):
@@ -775,15 +819,19 @@ def train_batch(torch, cfg, dev, seed):
     uniform clouds, the mask of the query and positive clouds, and
     correspondence tables of ``A2B_MAX_ROWS`` rows over the (query,
     positive) pairs with patch slots in [0, SAMPLING[0]), about half the
-    rows valid and the last pair with none (the tables the data engine
-    builds from overlap records are not ported)."""
+    rows valid and the last pair with none; for a model without a patch
+    branch the empty tables and an all-false mask."""
     import numpy as np
     from patchaugnet_tpu_torch.losses import PatchCorrespondences
+    from patchaugnet_tpu_torch.train import empty_patch_inputs
 
     rng = np.random.default_rng(seed)
     b, p = cfg["TRAIN_BATCH_SIZE"], cfg["TRAIN_POSITIVES_PER_QUERY"]
     t = 1 + p + cfg["TRAIN_NEGATIVES_PER_QUERY"] + 1
     clouds = torch.from_numpy(rng.random((b * t, cfg["NUM_POINTS"], 3), dtype=np.float32)).to(dev)
+    if cfg["model_type"] != "patch_aug_net":               # no patch branch: empty tables
+        corr, mask = empty_patch_inputs(cfg, b * t)
+        return clouds, mask.to(dev), corr.to(dev)
     mask = np.zeros(b * t, bool)
     for q in range(b):
         mask[q * t: q * t + 1 + p] = True
@@ -798,29 +846,45 @@ def train_batch(torch, cfg, dev, seed):
     return clouds, torch.from_numpy(mask).to(dev), corr
 
 
-def check_level_shapes(torch, mods, dev, batch, what):
-    """K1 at the three SA levels and K2 at the six kNN cases of a forward
-    on ``batch`` clouds, bit-equal to their plain versions (the lanes rule
-    takes the batch: SA1 runs 32 lanes per query at 32 clouds, 16 at 36
-    and 8 at 72 and 100)."""
+def check_level_shapes(torch, mods, dev, batch, what, levels=PATCH_LEVELS, tied=False):
+    """K1 at the SA levels and K2 at the kNN cases of a forward on
+    ``batch`` clouds (``levels``: the model's SA centres), bit-equal to
+    their plain versions (the lanes rule takes the batch: PatchAugNet's SA1
+    runs 32 lanes per query at 32 clouds, 16 at 36 and 8 at 72 and 100);
+    with ``tied``, on duplicated-grid clouds too (many equal distances)."""
     from patchaugnet_tpu_torch import ops
 
     fps, knn = mods["fps"], mods["knn"]
-    x = level_clouds(torch, ops, fps._farthest_point_sample_torch, torch.Generator(device=dev).manual_seed(7), batch)
-    for level in range(3):
-        if not torch.equal(ops.farthest_point_sample(x[level], x[level + 1].shape[1]),
-                           fps._farthest_point_sample_torch(x[level], x[level + 1].shape[1])):
-            raise AssertionError(f"fps SA{level} B={batch}: kernel indices differ from the plain version")
-    lanes = []
-    for label, pts, qry, k in knn_cases(x):
-        check_equal(torch, f"knn {label} B={batch}", ops.knn(pts, qry, k), knn._knn_torch(pts, qry, k))
-        lanes.append(f"{label} {knn.lanes_for(batch, pts.shape[1], qry.shape[1], k, mods['cuda'].sm_count(dev))}")
-    say(f"K1 and K2 at {what} B={batch}: bit-equal to the plain versions at the three SA levels "
-        f"and the six kNN cases (lanes per query: {', '.join(lanes)})")
+    x = level_clouds(torch, ops, fps._farthest_point_sample_torch, torch.Generator(device=dev).manual_seed(7), batch,
+                     levels)
+    kinds = [("random", x)]
+    if tied:
+        grid = [(c * 8).floor() / 8 for c in x]
+        for c in grid:
+            c[:, 1::7] = c[:, :1]
+        kinds.append(("duplicated-grid", grid))
+    lanes, layouts = [], []
+    for kind, clouds in kinds:
+        for level in range(len(levels)):
+            m = clouds[level + 1].shape[1]
+            if not torch.equal(ops.farthest_point_sample(clouds[level], m),
+                               fps._farthest_point_sample_torch(clouds[level], m)):
+                raise AssertionError(f"fps SA{level} B={batch} {kind}: kernel indices differ from the plain version")
+            if kind == "random":
+                layouts.append(f"SA{level} {fps.layout_for(clouds[level].shape[1])}")
+        for label, pts, qry, k in knn_cases(clouds):
+            check_equal(torch, f"knn {label} B={batch} {kind}", ops.knn(pts, qry, k), knn._knn_torch(pts, qry, k))
+            if kind == "random":
+                lanes.append(f"{label} {knn.lanes_for(batch, pts.shape[1], qry.shape[1], k, mods['cuda'].sm_count(dev))}")
+    say(f"K1 and K2 at {what} B={batch}: bit-equal to the plain versions at the {len(levels)} SA levels "
+        f"and the {2 * len(levels)} kNN cases on {' and '.join(k for k, _ in kinds)} clouds (K1 layouts: "
+        f"{', '.join(layouts)}; K2 lanes per query: {', '.join(lanes)})")
 
 
 def phase_train(torch, mods, records, dev):
-    """The flagship train step at full width through the port's entry points."""
+    """The flagship train step at full width through the port's entry
+    points: its centres (``build_center_fn``, one K1 launch, equal to the
+    forward's level-1 centres), then ``train_model``."""
     from patchaugnet_tpu_torch import configs, train
     from patchaugnet_tpu_torch.models import get_model
     from patchaugnet_tpu_torch.nn import seeded_init_
@@ -829,23 +893,44 @@ def phase_train(torch, mods, records, dev):
     check_level_shapes(torch, mods, dev, cfg["TRAIN_BATCH_SIZE"] * (cfg["TRAIN_POSITIVES_PER_QUERY"]
                                                                    + cfg["TRAIN_NEGATIVES_PER_QUERY"] + 2),
                        "the train step's batch")
-    model = seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(5))
-    state = train.create_train_state(model, cfg, device=dev)
-    plain_state = copy.deepcopy(state)
-    clouds, mask, corr = train_batch(torch, cfg, dev, seed=6)
-    total = clouds.shape[0]
-    center_fn = train.build_center_fn(cfg["SAMPLING"][0], device=dev)
-    step = train.build_train_step(state.model, cfg)
-
+    clouds, _, _ = train_batch(torch, cfg, dev, seed=6)
     reset_counts(mods, records)
-    centers = center_fn(clouds)
+    centers = train.build_center_fn(cfg["SAMPLING"][0], device=dev)(clouds)
     torch.cuda.synchronize()
     center_counts = read_counts(mods, records)
     check_launches(center_counts, CENTER_LAUNCHES, "build_center_fn")
+    model = seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(5))
+    step_counts, step_ms, origin = train_model(torch, mods, records, dev, cfg, model, "patch_aug_net", STEP_LAUNCHES,
+                                               seed=6)
+    if not torch.equal(centers, origin[0]):
+        raise AssertionError("build_center_fn: centres differ from the forward's level-1 centres")
+    say(f"train: centres equal to the forward's, launches {center_counts}")
+    return center_counts, step_counts, step_ms
 
+
+def train_model(torch, mods, records, dev, cfg, model, what, launches, seed):
+    """One step of ``train.build_train_step`` on ``cfg``'s tuple batch
+    (``train_batch`` from ``seed``: clouds of 4096 points, and for
+    PatchAugNet the patch branch on the query and positive clouds and
+    seeded correspondence tables), with ``launches`` kernel launches and no
+    other; where the path launches kernels, held against the same step
+    from a deep copy of the state on the plain versions (provenance
+    indices equal, metrics and new BatchNorm statistics within 1e-6);
+    every loss term finite and positive, parameters changed and finite,
+    every statistic changed; then ms per step, clouds/s and peak memory
+    over TRAIN_STEPS steps after TRAIN_WARMUP. Returns the launch counts,
+    the ms per step and the first step's provenance centres (None for a
+    model without them)."""
+    from patchaugnet_tpu_torch import train
+
+    state = train.create_train_state(model, cfg, device=dev)
+    plain_state = copy.deepcopy(state) if launches else None
+    clouds, mask, corr = train_batch(torch, cfg, dev, seed=seed)
+    total = clouds.shape[0]
+    step = train.build_train_step(state.model, cfg)
     outs = []
     hooks = [s.model.register_forward_hook(lambda mod, args, out: outs.append(out))
-             for s in (state, plain_state)]
+             for s in (state, plain_state) if s is not None]
     params_before = [p.detach().clone() for p in state.model.parameters()]
     stats_before = [b.clone() for b in state.model.buffers()]
     reset_counts(mods, records)
@@ -853,43 +938,40 @@ def phase_train(torch, mods, records, dev):
     state, metrics = step(state, clouds, corr, mask)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    step_counts = read_counts(mods, records)
-    check_launches(step_counts, STEP_LAUNCHES, "train step")
-
-    with plain_kernels(mods):
-        before = read_counts(mods, records)
-        plain_state, plain_metrics = train.build_train_step(plain_state.model, cfg)(
-            plain_state, clouds, corr, mask)
-        torch.cuda.synchronize()
-        if read_counts(mods, records) != before:
-            raise AssertionError("the plain train step launched a kernel")
+    counts = read_counts(mods, records)
+    check_launches(counts, launches, f"{what} train step")
+    text = f"launches {counts}"
+    if launches:
+        with plain_kernels(mods):
+            before = read_counts(mods, records)
+            plain_state, plain_metrics = train.build_train_step(plain_state.model, cfg)(plain_state, clouds, corr, mask)
+            torch.cuda.synchronize()
+            if read_counts(mods, records) != before:
+                raise AssertionError(f"{what}: the plain train step launched a kernel")
+        ref, plain = outs
+        check_provenance(torch, ref, plain, what, f"{what} train step")
+        errs = {k: abs(metrics[k].item() - v.item()) / abs(v.item()) for k, v in plain_metrics.items()}
+        stats_err = max((a - b).abs().max().item() for a, b in zip(state.model.buffers(), plain_state.model.buffers()))
+        if max(errs.values()) > 1e-6 or stats_err > 1e-6:
+            raise AssertionError(f"{what} train step: metrics {errs} or BN statistics (max abs err {stats_err}) "
+                                 f"differ from the plain-kernel run")
+        text = (f"provenance indices equal to the plain path; metrics max rel err {max(errs.values()):.3g}, BN "
+                f"statistics max abs err {stats_err:.3g}; " + text)
+        del ref, plain
     for h in hooks:
         h.remove()
-    ref, plain = outs
-    for name in ("center_idx_origin", "sample_idx_origin"):
-        for level, (a, b) in enumerate(zip(getattr(ref, name), getattr(plain, name))):
-            if not torch.equal(a, b):
-                raise AssertionError(f"train step {name}[{level}]: kernel path differs from the plain path")
-    if not torch.equal(centers, ref.center_idx_origin[0]):
-        raise AssertionError("build_center_fn: centres differ from the forward's level-1 centres")
-    errs = {k: abs(metrics[k].item() - v.item()) / abs(v.item()) for k, v in plain_metrics.items()}
-    stats_err = max((a - b).abs().max().item() for a, b in zip(state.model.buffers(), plain_state.model.buffers()))
-    if max(errs.values()) > 1e-6 or stats_err > 1e-6:
-        raise AssertionError(f"train step: metrics {errs} or BN statistics (max abs err {stats_err}) differ "
-                             f"from the plain-kernel run")
+    centers = getattr(outs[0], "center_idx_origin", None)
+    del plain_state, outs                           # the outputs hold activations: out of the timed peak
     for key, value in metrics.items():
         if not (torch.isfinite(value) and value.item() > 0):
-            raise AssertionError(f"train step: {key} = {value.item()} is not finite and positive")
+            raise AssertionError(f"{what} train step: {key} = {value.item()} is not finite and positive")
     if all(torch.equal(a, b) for a, b in zip(params_before, state.model.parameters())):
-        raise AssertionError("train step: no parameter changed")
+        raise AssertionError(f"{what} train step: no parameter changed")
     if any(torch.equal(a, b) for a, b in zip(stats_before, state.model.buffers())):
-        raise AssertionError("train step: a BatchNorm statistic did not change")
+        raise AssertionError(f"{what} train step: a BatchNorm statistic did not change")
     if not all(torch.isfinite(p).all() for p in state.model.parameters()):
-        raise AssertionError("train step: a parameter is not finite")
-    say(f"train: provenance indices equal to the plain path, centres equal to the forward's; metrics "
-        f"max rel err {max(errs.values()):.3g}, BN statistics max abs err {stats_err:.3g}; "
-        f"launches: centres {center_counts}, step {step_counts}")
-    del plain_state, outs, ref, plain
+        raise AssertionError(f"{what} train step: a parameter is not finite")
+    say(f"{what} train: {text}")
 
     for _ in range(TRAIN_WARMUP):
         state, metrics = step(state, clouds, corr, mask)
@@ -900,17 +982,17 @@ def phase_train(torch, mods, records, dev):
         state, metrics = step(state, clouds, corr, mask)
     torch.cuda.synchronize()
     sec = (time.perf_counter() - t0) / TRAIN_STEPS
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
     last = {k: round(v.item(), 6) for k, v in metrics.items()}
     if not all(torch.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"train step: non-finite metrics {last}")
-    measured(f"train step, {total} clouds x {cfg['NUM_POINTS']} points ({cfg['TRAIN_BATCH_SIZE']} x "
-             f"{total // cfg['TRAIN_BATCH_SIZE']}), patch branch on {int(mask.sum())} clouds, "
-             f"{cfg['A2B_MAX_ROWS']} a2b rows",
+        raise AssertionError(f"{what} train step: non-finite metrics {last}")
+    patches = (f", patch branch on {int(mask.sum())} clouds, {cfg['A2B_MAX_ROWS']} a2b rows"
+               if what == "patch_aug_net" else "")
+    measured(f"{what} train step, {total} clouds x {cfg['NUM_POINTS']} points ({cfg['TRAIN_BATCH_SIZE']} x "
+             f"{total // cfg['TRAIN_BATCH_SIZE']}){patches}",
              f"{sec * 1e3:.2f} ms per step ({TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up; first step "
-             f"{first_ms:.2f} ms), {total / sec:.1f} clouds/s, peak memory {peak:.2f} GiB, "
-             f"step {state.step} metrics {last}")
-    return center_counts, step_counts, sec * 1e3
+             f"{first_ms:.2f} ms), {total / sec:.1f} clouds/s, peak memory "
+             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, step {state.step} metrics {last}")
+    return counts, sec * 1e3, centers
 
 
 class HostClock:
@@ -1253,12 +1335,164 @@ def phase_cli(torch, mods, records, step_ms):
             clouds, _ = ds.scene.get_clouds(idx)
             clouds = np.concatenate([clouds, np.repeat(clouds[-1:], size - len(idx), 0)])
             _, err = check_against_plain(torch, mods, records, model, torch.as_tensor(clouds, device=dev),
-                                         f"CLI {what} of {size}")
+                                         "patch_aug_net", f"CLI {what} of {size}")
             say(f"CLI {what} of {size} clouds: provenance indices equal to the plain path, descriptor max abs "
                 f"err {err:.3g}")
         if not model.training:
             raise AssertionError("CLI: the plain-path check left the model in eval mode")
     return train_counts, eval_counts, refresh_counts
+
+
+def time_ppt_kernels(torch, ops, mods, dev):
+    """K1 and K2 at the level shapes of a PPT-Net forward at B=32 that a
+    PatchAugNet forward does not launch (K1 at SA1-SA3, K2 at SA1-SA3 and
+    FP1-FP3; SA0 and FP0 are PatchAugNet's), each equal to its plain
+    version and timed beside it and the ``torch.topk`` yardstick, each on a
+    line of its own. The kernels' records, and so the ``kernels`` line's
+    sums, keep the PatchAugNet forward's shapes alone."""
+    fps, knn = mods["fps"], mods["knn"]
+    x = level_clouds(torch, ops, fps._farthest_point_sample_torch, torch.Generator(device=dev).manual_seed(8), B,
+                     PPT_LEVELS)
+    for level in range(1, len(PPT_LEVELS)):
+        pts, m = x[level], x[level + 1].shape[1]
+        n = pts.shape[1]
+        if not torch.equal(ops.farthest_point_sample(pts, m), fps._farthest_point_sample_torch(pts, m)):
+            raise AssertionError(f"fps PPT-Net SA{level}: kernel indices differ from the plain version")
+        ms = time_ms(torch, lambda: ops.farthest_point_sample(pts, m), 20)
+        plain = time_ms(torch, lambda: fps._farthest_point_sample_torch(pts, m), 2)
+        b_ms, b_by = fps_bound(B, n, m)
+        measured(f"K1 fps PPT-Net SA{level} (b,n,m)=({B},{n},{m}), layout {fps.layout_for(n)}",
+                 f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), indices equal")
+    for label, pts, qry, k in knn_cases(x):
+        if label in ("SA0", "FP0"):
+            continue
+        n, m = pts.shape[1], qry.shape[1]
+        check_equal(torch, f"knn PPT-Net {label}", ops.knn(pts, qry, k), knn._knn_torch(pts, qry, k))
+        ms = time_ms(torch, lambda: ops.knn(pts, qry, k), 20)
+        plain = time_ms(torch, lambda: knn._knn_torch(pts, qry, k), 3)
+        lib, pair_ms = knn_yardsticks(torch, ops, pts, qry, k)
+        b_ms, b_by = knn_bound(B, n, m, k)
+        measured(f"K2 knn PPT-Net {label} (b,n,m,k)=({B},{n},{m},{k}), "
+                 f"{knn.lanes_for(B, n, m, k, mods['cuda'].sm_count(dev))} lanes per query",
+                 f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.topk on the distance matrix {lib:.4f} ms "
+                 f"(+{pair_ms:.4f} ms to form it), bound {b_ms:.4f} ms ({b_by}), indices and d2 equal")
+
+
+def cli_family(torch, mods, records, family, config, launches):
+    """``train_torch.py`` for FAMILY_CLI_BATCHES batches of ``config`` on the
+    synthetic scene, on the card (``launches`` per batch, no overlap tables:
+    the patch branch is PatchAugNet's), then ``evaluate_torch.py`` on its
+    checkpoint: recall@1 and 1% recall equal to the CPU retrieval's on the
+    same descriptors, ``launches`` per eval forward; the eval's forward
+    choice takes the global forward for a model without local
+    descriptors. Returns the train and eval launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    import evaluate_torch
+    import train_torch
+
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{family}_") as tmp:
+        reset_counts(mods, records)
+        t0 = time.perf_counter()
+        run = train_torch.main(["--config", config, "--dataset", "synthetic", "--epochs", "1", "--max-batches",
+                                str(FAMILY_CLI_BATCHES), "--exp_dir", os.path.join(tmp, "train")])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_counts = read_counts(mods, records)
+        summary, cfg = run["summaries"][0], run["cfg"]
+        batches = summary["batches"]
+        if batches != FAMILY_CLI_BATCHES or summary["patch_batches"] or not np.isfinite(summary["total"]):
+            raise AssertionError(f"CLI {family}: {batches} batches, {summary['patch_batches']} with overlap tables, "
+                                 f"loss {summary['total']}")
+        check_launches(train_counts, {k: v * batches for k, v in launches.items()}, f"CLI {family} train")
+        ckpt = os.path.join(cfg["save_path"], "train_epoch_0_end")
+        reset_counts(mods, records)
+        result = evaluate_torch.main(["--model_type", family, "--config", config, "--weight", ckpt, "--dataset",
+                                      "synthetic", "--no_save_top_k", "--exp_dir", os.path.join(tmp, "eval")])
+        torch.cuda.synchronize()
+        eval_counts = read_counts(mods, records)
+        test_ds = result["test_ds"]
+        forwards = -(-len(test_ds) // evaluate_torch.get_args([]).batch_size)
+        check_launches(eval_counts, {k: v * forwards for k, v in launches.items()}, f"CLI {family} eval")
+        descs = test_ds.scene.global_descs
+        if descs.shape != (len(test_ds), 256) or not np.isfinite(descs).all():
+            raise AssertionError(f"CLI {family} eval: descriptors {descs.shape} not finite ({len(test_ds)}, 256)")
+        on_card = test_ds.get_recall_precision(top_k=25)
+        test_ds.scene.device = "cpu"
+        on_cpu = test_ds.get_recall_precision(top_k=25)
+        for pair, res in on_card.items():
+            if (res.recall[0], res.one_percent_recall) != (on_cpu[pair].recall[0], on_cpu[pair].one_percent_recall):
+                raise AssertionError(f"CLI {family} eval, trips {pair}: recall@1 and 1% recall on the card differ "
+                                     f"from the CPU's")
+        model = run["state"].model
+        dev = next(model.parameters()).device
+        chosen = evaluate_torch.eval_forward(model, dev, local=True)(test_ds.scene.get_clouds([0, 1])[0])
+        if isinstance(chosen, tuple) != (family != "pointnet_vlad"):
+            raise AssertionError(f"CLI {family} eval: the forward choice took the wrong forward")
+        measured(f"CLI {family}: train_torch.py {batches} batches of "
+                 f"{cfg['TRAIN_BATCH_SIZE'] * (cfg['TRAIN_POSITIVES_PER_QUERY'] + cfg['TRAIN_NEGATIVES_PER_QUERY'] + 2)}"
+                 f" clouds on the {cfg['NUM_POINTS']}-point synthetic scene, then evaluate_torch.py on its checkpoint",
+                 f"train {train_s:.2f} s in all (the scene's set-up included), epoch loss {summary['total']:.6f}, "
+                 f"launches {train_counts}; eval recall@1 {result['recall_at_1']:.2f}, recall@1% "
+                 f"{result['ave_one_percent_recall']:.2f} over {result['num_pairs']} trip pairs (equal to the CPU "
+                 f"retrieval's), launches {eval_counts}; the eval's forward choice "
+                 f"{'local' if isinstance(chosen, tuple) else 'global'}")
+    return train_counts, eval_counts
+
+
+def phase_families(torch, ops, mods, records, dev):
+    """PPT-Net and PointNetVLAD at full width through the port's entry
+    points: K1 and K2 at PPT-Net's level shapes, serving, the train step
+    and the CLIs. Returns every run's launch counts."""
+    from patchaugnet_tpu_torch import configs
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import l2_normalize, seeded_init_
+
+    time_ppt_kernels(torch, ops, mods, dev)
+    for batch in FAMILY_BATCHES:
+        check_level_shapes(torch, mods, dev, batch, "PPT-Net's levels", PPT_LEVELS, tied=True)
+    paths = []
+
+    cfg = configs.PPTNET_ORIGIN
+    ppt = seeded_init_(get_model("pptnet", cfg), torch.Generator().manual_seed(10))
+    counts, clouds, descs = serve(torch, mods, records, dev, ppt, "pptnet", PPT_LAUNCHES, seed=11)
+    desc = descs[0]
+    paths.append(counts)
+    normed = get_model("pptnet_l2_norm", cfg).to(dev)
+    normed.load_state_dict(ppt.state_dict())
+    normed.eval()
+    reset_counts(mods, records)
+    with torch.inference_mode():
+        unit = normed(clouds).global_desc
+    counts = read_counts(mods, records)
+    check_launches(counts, PPT_LAUNCHES, "pptnet_l2_norm forward")
+    paths.append(counts)
+    norm_err = (unit.norm(dim=-1) - 1).abs().max().item()
+    same_err = (unit - l2_normalize(desc, dim=-1)).abs().max().item()
+    if norm_err > 1e-5 or same_err > 1e-6:
+        raise AssertionError(f"pptnet_l2_norm: max |norm - 1| {norm_err}, {same_err} from pptnet's normalised")
+    say(f"pptnet_l2_norm: unit-norm descriptors (max |norm - 1| {norm_err:.2g}), {same_err:.2g} from pptnet's "
+        f"normalised on the same weights; pptnet's norms {desc.norm(dim=-1).min().item():.4g} to "
+        f"{desc.norm(dim=-1).max().item():.4g}")
+    del ppt, normed
+    paths.append(train_model(torch, mods, records, dev, cfg,
+                             seeded_init_(get_model("pptnet", cfg), torch.Generator().manual_seed(13)),
+                             "pptnet", PPT_LAUNCHES, seed=12)[0])
+
+    cfg = configs.POINTNET_VLAD
+    pnv = seeded_init_(get_model("pointnet_vlad", cfg), torch.Generator().manual_seed(14))
+    paths.append(serve(torch, mods, records, dev, pnv, "pointnet_vlad", {}, seed=11)[0])
+    del pnv
+    paths.append(train_model(torch, mods, records, dev, cfg,
+                             seeded_init_(get_model("pointnet_vlad", cfg), torch.Generator().manual_seed(15)),
+                             "pointnet_vlad", {}, seed=12)[0])
+
+    for family, config, launches in (("pptnet", "configs/pptnet_origin.yaml", PPT_LAUNCHES),
+                                     ("pointnet_vlad", "configs/pointnet_vlad.yaml", {})):
+        paths.extend(cli_family(torch, mods, records, family, os.path.join(ROOT, config), launches))
+    return paths
 
 
 def main():
@@ -1286,12 +1520,13 @@ def main():
     emd_counts, chunked_counts = phase_emd(torch, ops, mods, records, dev)
     center_counts, step_counts, step_ms = phase_train(torch, mods, records, dev)
     cli_counts = phase_cli(torch, mods, records, step_ms)
+    family_counts = phase_families(torch, ops, mods, records, dev)
 
     # each kernel's launches on its paths: K1-K3 serving, K6 emd_loss, K4
     # the row-chunked auction, K1 and K2 the train step and its centres,
-    # and the CLIs' epoch, eval and refresh (each run counts only its own
-    # kernels)
-    paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts, *cli_counts)
+    # the CLIs' epoch, eval and refresh, and PPT-Net's and PointNetVLAD's
+    # serving, train steps and CLIs (each run counts only its own kernels)
+    paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts, *cli_counts, *family_counts)
     launches = {name: sum(counts[name] for counts in paths) for name in serving_counts}
     # K5 (``topk_extract_pair``) is K3's function by K3's kernel, on no path
     # (the JAX package dispatches it nowhere): its line repeats K3's times

@@ -9,15 +9,18 @@ runs by default. ``--weight`` is a checkpoint of ``train_torch.py``. It
 runs on the card; ``--platform cpu`` runs it on the CPU, and without a
 CUDA device and without that flag it exits with a message.
 
-Not ported, each refused with the ROADMAP item that brings it: models
-other than ``patch_aug_net`` (A7, A8, A10), reference ``.pth`` and JAX
-orbax weights (A12), ``--devices`` above 1 (A11), ``--precision
-bfloat16`` (A3).
+It evaluates ``patch_aug_net``, ``pptnet``, ``pptnet_l2_norm`` and
+``pointnet_vlad``; a model without local descriptors (PointNetVLAD) takes
+the global forward where the descriptor store would take the local one.
+Not ported, each refused with the ROADMAP item that brings it:
+``minkloc3dv2`` (A10), reference ``.pth`` and JAX orbax weights (A12),
+``--devices`` above 1 (A11), ``--precision bfloat16`` (A3).
 
 Usage:
   python evaluate_torch.py --model_type patch_aug_net \
       --weight exp/patch_aug_net/saved_model/train_epoch_29_end --dataset oxford
   python evaluate_torch.py --model_type patch_aug_net --dataset synthetic   # random init smoke
+  python evaluate_torch.py --model_type pointnet_vlad --dataset synthetic
 """
 import argparse
 import os
@@ -33,7 +36,7 @@ CONFIG_TABLE = {
     "pointnet_vlad": "configs/pointnet_vlad.yaml",
     "minkloc3dv2": "configs/minkloc3dv2.yaml",
 }
-UNPORTED_MODELS = {"pptnet": "A7", "pptnet_l2_norm": "A7", "pointnet_vlad": "A8", "minkloc3dv2": "A10"}
+UNPORTED_MODELS = {"minkloc3dv2": "A10"}
 
 
 def get_args(argv=None):
@@ -78,6 +81,16 @@ def refuse_unported(args):
         raise NotImplementedError(
             f"--weight {args.weight}: reference .pth and JAX orbax weights are not read yet (ROADMAP A12); "
             f"pass a checkpoint of train_torch.py")
+
+
+def eval_forward(model, device, local: bool):
+    """The eval's forward: the local one (global, local, centres) when the
+    descriptor store wants locals and the model has them, else the global
+    one, as ``evaluate.py:166-170`` falls back for PointNetVLAD."""
+    from patchaugnet_tpu_torch import train
+
+    forward = train.build_local_forward_fn(model, device) if local else None
+    return forward if forward is not None else train.build_forward_fn(model, device)
 
 
 def main(argv=None):
@@ -137,10 +150,7 @@ def main(argv=None):
         if not args.no_save_descs and args.dataset != "synthetic"
         else None
     )
-    if save_model_type is not None:
-        forward = train.build_local_forward_fn(state.model, device)
-    else:
-        forward = train.build_forward_fn(state.model, device)
+    forward = eval_forward(state.model, device, local=save_model_type is not None)
     out = train.evaluate(
         forward, test_ds, top_k=25, batch_size=args.batch_size, logger=logger,
         save_model_type=save_model_type,

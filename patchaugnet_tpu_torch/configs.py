@@ -7,9 +7,10 @@ that file: the model keys, the training keys (the tuple batch, margins,
 loss flags and weights, optimizer and schedule, the a2b table sizes) and
 the keys the CLIs read (the seed, the experiment directory, the eval
 tuple sizes, the dataset). ``TINY_SMOKE`` is ``configs/tiny_smoke.yaml``,
-the CPU smoke configuration. They are kept here so that the port needs
-neither PyYAML nor the JAX package's entry modules; a test holds each
-equal to its YAML file.
+the CPU smoke configuration. ``PPTNET_ORIGIN`` and ``POINTNET_VLAD`` hold
+every key of ``configs/pptnet_origin.yaml`` and ``configs/pointnet_vlad.yaml``.
+They are kept here so that the port needs neither PyYAML nor the JAX
+package's entry modules; a test holds each equal to its YAML file.
 """
 import copy
 import os
@@ -81,8 +82,71 @@ TINY_SMOKE = dict(
     dataset="synthetic",
 )
 
+_TRAIN_KEYS = dict(
+    MANUAL_SEED=123,
+    use_patch_recon=False,
+    use_patch_feature_contrast=False,
+    use_hard_negative_patch_mining=False,
+    weight_place_recognition=1.0,
+    weight_patch_recon=0.25,
+    weight_patch_feature_contrast=0.25,
+    EXP_DIR="exp",
+    TRAIN_POSITIVES_PER_QUERY=2,
+    BASE_LEARNING_RATE=0.0005,
+    MOMENTUM=0.9,
+    OPTIMIZER="adam",
+    MAX_EPOCH=30,
+    LEARNING_RATE_DECAY="step",
+    MARGIN_1=0.5,
+    MARGIN_2=0.2,
+    LOSS_FUNCTION="quadruplet",
+    LOSS_LAZY=True,
+    TRIPLET_USE_BEST_POSITIVES=False,
+    LOSS_IGNORE_ZERO_BATCH=False,
+    EVAL_BATCH_SIZE=1,
+    EVAL_POSITIVES_PER_QUERY=4,
+    EVAL_NEGATIVES_PER_QUERY=10,
+    dataset="oxford",
+)
+
+PPTNET_ORIGIN = dict(
+    _TRAIN_KEYS,
+    model_type="pptnet",
+    GROUP=8,
+    AGGREGATION="spvlad",
+    NUM_POINTS=4096,
+    FEATURE_OUTPUT_DIM=256,
+    FEATURE_SIZE=[256, 256, 256, 256],
+    MAX_SAMPLES=[64, 256, 1024, 4096],
+    CLUSTER_SIZE=[1, 4, 16, 64],
+    OUTPUT_DIM=[256, 256, 256, 256],
+    GATING=True,
+    SAMPLING=[1024, 256, 64, 16],
+    KNN=[20, 20, 20, 20],
+    TRAIN_BATCH_SIZE=1,
+    TRAIN_NEGATIVES_PER_QUERY=14,
+)
+
+POINTNET_VLAD = dict(
+    _TRAIN_KEYS,
+    model_type="pointnet_vlad",
+    GLOBAL_FEAT=True,
+    FEATURE_TRANSFORM=True,
+    MAX_POOL=False,
+    GROUP=8,
+    NUM_POINTS=4096,
+    FEATURE_OUTPUT_DIM=256,
+    TRAIN_BATCH_SIZE=2,
+    TRAIN_NEGATIVES_PER_QUERY=18,
+    BASE_LEARNING_RATE=0.000005,
+    MAX_EPOCH=20,
+    EVAL_BATCH_SIZE=2,
+    EVAL_NEGATIVES_PER_QUERY=12,
+)
+
 # the configuration files the port knows without PyYAML, by file name
-KNOWN_CONFIGS = {"patch_aug_net.yaml": PATCH_AUG_NET_TRAIN, "tiny_smoke.yaml": TINY_SMOKE}
+KNOWN_CONFIGS = {"patch_aug_net.yaml": PATCH_AUG_NET_TRAIN, "tiny_smoke.yaml": TINY_SMOKE,
+                 "pptnet_origin.yaml": PPTNET_ORIGIN, "pointnet_vlad.yaml": POINTNET_VLAD}
 
 
 def load_config(path: str) -> Dict[str, Any]:

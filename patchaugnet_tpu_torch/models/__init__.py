@@ -1,14 +1,31 @@
-"""Model factory (only PatchAugNet is ported so far)."""
+"""Model factory, as the reference's model_type strings dispatch
+(``patchaugnet_tpu/models/__init__.py``). MinkLoc3Dv2 is not ported yet
+(ROADMAP A10)."""
 from typing import Any, Dict
 
+from torch import nn
+
 from .patch_aug_net import PatchAugNet, PatchAugNetOutput, PatchData
+from .pointnet_vlad import PointNetFeat, PointNetVLAD
+from .pptnet import PPTNet, PPTNetOutput
 
 
-def get_model(model_type: str, param: Dict[str, Any]) -> PatchAugNet:
+def get_model(model_type: str, param: Dict[str, Any]) -> nn.Module:
     """Build a model by the reference's model_type string."""
+    if model_type == "pptnet":
+        return PPTNet(param=param, use_normalize=False)
+    if model_type == "pptnet_l2_norm":
+        return PPTNet(param=param, use_normalize=True)
+    if model_type == "pointnet_vlad":
+        if param.get("COMPUTE_DTYPE") is not None:
+            raise NotImplementedError(f"COMPUTE_DTYPE={param['COMPUTE_DTYPE']!r} is not ported; leave it unset")
+        return PointNetVLAD(output_dim=param["FEATURE_OUTPUT_DIM"])
     if model_type == "patch_aug_net":
         return PatchAugNet(param=param, use_a2a_recon=param.get("use_patch_recon", True))
-    raise ValueError(f"model_type {model_type!r}: not ported yet")
+    if model_type == "minkloc3dv2":
+        raise ValueError("model_type 'minkloc3dv2': not ported yet (ROADMAP A10)")
+    raise ValueError(f"unknown model_type: {model_type}")
 
 
-__all__ = ["get_model", "PatchAugNet", "PatchAugNetOutput", "PatchData"]
+__all__ = ["get_model", "PatchAugNet", "PatchAugNetOutput", "PatchData", "PPTNet", "PPTNetOutput",
+           "PointNetVLAD", "PointNetFeat"]

@@ -1,11 +1,11 @@
-"""PointNet++ backbone of PatchAugNet.
+"""PointNet++ backbone of PatchAugNet and PPT-Net.
 
-Port of ``PointNet2SAModule`` (without the grouped self-attention of
-PPT-Net), ``PointNet2FPModule`` and ``index_provenance`` of
-``patchaugnet_tpu/models/backbone.py``:
+Port of ``PointNet2SAModule``, ``PointNet2FPModule`` and
+``index_provenance`` of ``patchaugnet_tpu/models/backbone.py``:
 
 - SA level: FPS -> gather -> EdgeConv grouping (kNN, dilation) ->
-  SharedMLP -> neighbour max-pool;
+  SharedMLP -> neighbour max-pool, and in PPT-Net the grouped
+  self-attention after it (``gp``);
 - FP level: 3-NN inverse-distance interpolation + SharedMLP;
 - index provenance: every level's centre/sample indices mapped back to
   the original cloud.
@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from .. import ops
-from ..nn import SharedMLP
+from ..nn import GroupSA, SharedMLP
 
 
 class SALevelOutput(NamedTuple):
@@ -33,13 +33,16 @@ class PointNet2SAModule(nn.Module):
 
     ``in_features`` is the width of the level's input features; the MLP
     sees ``3 + in_features`` channels (centred xyz ++ centred features).
+    ``gp`` adds ``GroupSA`` with ``gp`` groups after the max-pool, as
+    ``sa`` (PPT-Net).
     """
 
     def __init__(self, npoint: int, nsample: int, in_features: int, mlp: Sequence[int],
-                 knn_dilation: int = 1):
+                 knn_dilation: int = 1, gp: Optional[int] = None):
         super().__init__()
         self.npoint, self.nsample, self.knn_dilation = npoint, nsample, knn_dilation
         self.mlp = SharedMLP(in_features + 3, mlp)
+        self.sa = GroupSA(mlp[-1], gp) if gp is not None else None
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor) -> SALevelOutput:
         center_idx = ops.farthest_point_sample(xyz, self.npoint)
@@ -50,6 +53,8 @@ class PointNet2SAModule(nn.Module):
             nsample=self.nsample, knn_dilation=self.knn_dilation,
         )
         h = self.mlp(grouped.new_features).amax(dim=2)    # neighbour max-pool
+        if self.sa is not None:
+            h = self.sa(h)
         return SALevelOutput(new_xyz, center_idx, grouped.sample_idx, h)
 
 

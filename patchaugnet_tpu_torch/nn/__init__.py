@@ -1,9 +1,9 @@
-"""Building blocks of PatchAugNet (torch modules)."""
+"""Building blocks of the port's models (torch modules)."""
 from .core import (BN_EPS, BN_MOMENTUM, MLP, BatchNorm, SharedMLP, l2_normalize, seeded_init_,
                    training_init_)
-from .pointnet import PointNetDecoder
-from .attention import AdaptiveFeatureAggregator, MLPAttention
-from .vlad import GatingContext, NetVLADBase, SpatialPyramidNetVLAD
+from .pointnet import STN3D, PointNetAutoencoder, PointNetDecoder, PointNetEncoder
+from .attention import SA, AdaptiveFeatureAggregator, GroupedDense, GroupSA, MLPAttention
+from .vlad import GatingContext, NetVLADBase, NetVLADLoupe, PPTSpatialPyramidNetVLAD, SpatialPyramidNetVLAD
 
 __all__ = [
     "BN_EPS",
@@ -19,5 +19,13 @@ __all__ = [
     "NetVLADBase",
     "GatingContext",
     "SpatialPyramidNetVLAD",
+    "PPTSpatialPyramidNetVLAD",
+    "NetVLADLoupe",
+    "GroupedDense",
+    "GroupSA",
+    "SA",
+    "STN3D",
+    "PointNetEncoder",
     "PointNetDecoder",
+    "PointNetAutoencoder",
 ]

@@ -1,8 +1,11 @@
-"""Attention blocks of the PatchAugNet head (channels-last).
+"""Attention blocks (channels-last).
 
-Port of ``MLPAttention`` and ``AdaptiveFeatureAggregator`` of
-``patchaugnet_tpu/nn/attention.py`` (reference ``loupe.py:8-66``).
-Sequences are ``(B, L, C)``.
+Port of ``patchaugnet_tpu/nn/attention.py``: ``MLPAttention`` and
+``AdaptiveFeatureAggregator`` of the PatchAugNet head (reference
+``loupe.py:8-66``), and the self-attention of PPT-Net's SA levels,
+``GroupSA`` (grouped, reference ``SA_Layer``, ``pptnet.py:246-282``) and
+``SA`` (ungrouped, reference ``SALayer``, ``loupe.py:117-156``), both with
+tied Q/K weights. Sequences are ``(B, L, C)``.
 """
 from __future__ import annotations
 
@@ -53,3 +56,69 @@ class AdaptiveFeatureAggregator(nn.Module):
         x = self.mlpa(x)                                    # (B, K, C)
         flat = x.transpose(-1, -2).reshape(x.shape[0], self.c_in * self.k)
         return l2_normalize(self.bn(self.fc(flat)), dim=-1)
+
+
+class GroupedDense(nn.Module):
+    """Grouped 1x1 conv over the channel axis, without bias: a
+    block-diagonal ``(C, C)`` product, the torch ``Conv1d(C, C, 1,
+    groups=gp, bias=False)``. The weight is the raw ``kernel`` of shape
+    ``(gp, C/gp, C/gp)``, as in the JAX tree (not a ``Linear``, whose weight
+    ``compat.jax_params`` transposes); its JAX initialiser is flax's
+    ``lecun_normal``, whose fan-in is ``gp * C/gp = C`` (``init_fan``)."""
+
+    def __init__(self, channels: int, gp: int):
+        super().__init__()
+        if channels % gp:
+            raise ValueError(f"channels={channels} is not a multiple of gp={gp}")
+        self.gp, self.cg = gp, channels // gp
+        self.kernel = nn.Parameter(torch.empty(gp, self.cg, self.cg))
+        self.init_fan = {"kernel": channels}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xg = x.reshape(*x.shape[:-1], self.gp, self.cg)
+        return torch.einsum("...gi,gio->...go", xg, self.kernel).reshape(x.shape)
+
+
+def _tied_attention(x: torch.Tensor, xq: torch.Tensor, xv: torch.Tensor, trans_conv: nn.Module,
+                    after_norm: nn.Module) -> torch.Tensor:
+    """The reference's attention with tied Q/K: energy ``xq xq^T`` (summed
+    over every channel, so over the groups too), a softmax over the last
+    axis, then a division by ``1e-9 +`` the sum over the query axis;
+    ``x_r = attn^T v``; ``x + relu(after_norm(trans_conv(x - x_r)))``."""
+    energy = torch.bmm(xq, xq.transpose(1, 2))             # (B, N, N)
+    attn = torch.softmax(energy, dim=-1)
+    attn = attn / (1e-9 + attn.sum(dim=1, keepdim=True))
+    x_r = torch.bmm(attn.transpose(1, 2), xv)               # x_r[j] = sum_i attn[i, j] v[i]
+    return x + torch.relu(after_norm(trans_conv(x - x_r)))
+
+
+class GroupSA(nn.Module):
+    """Grouped self-attention with tied Q/K weights, ``(B, N, C) ->
+    (B, N, C)``: the grouped projection ``qk_conv`` serves as both queries
+    and keys (the reference ties ``q_conv.weight = k_conv.weight``)."""
+
+    def __init__(self, channels: int, gp: int):
+        super().__init__()
+        self.qk_conv = GroupedDense(channels, gp)
+        self.v_conv = nn.Linear(channels, channels)
+        self.trans_conv = nn.Linear(channels, channels)
+        self.after_norm = BatchNorm(channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _tied_attention(x, self.qk_conv(x), self.v_conv(x), self.trans_conv, self.after_norm)
+
+
+class SA(nn.Module):
+    """Ungrouped self-attention with tied Q/K (reference ``SALayer``):
+    ``qk_conv`` is a bias-free ``Linear``. Nothing in the JAX package
+    calls it."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.qk_conv = nn.Linear(channels, channels, bias=False)
+        self.v_conv = nn.Linear(channels, channels)
+        self.trans_conv = nn.Linear(channels, channels)
+        self.after_norm = BatchNorm(channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _tied_attention(x, self.qk_conv(x), self.v_conv(x), self.trans_conv, self.after_norm)

@@ -108,14 +108,20 @@ def seeded_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     ``generator`` (a CPU generator; values are copied to the model's
     device), in ``named_parameters``/``named_buffers`` order.
 
-    Weights are normal with std ``1/sqrt(fan_in)`` (the second-to-last axis
-    of a raw parameter, the input width of a ``Linear``), biases normal
-    with std 0.1. BatchNorm scale and running variance are uniform in
-    [0.5, 1.5] and its bias and running mean normal with std 0.1, away
-    from the 1/0 defaults, so that an eval forward exercises every BN.
+    Weights are normal with std ``1/sqrt(fan_in)``, biases normal with std
+    0.1. The fan-in is the input width of a ``Linear``, and of a raw
+    parameter the fan its JAX initialiser takes where its module names one
+    in ``init_fan`` (``{name: fan}``), else its second-to-last axis (its
+    only axis for a vector). The child modules that a module names in
+    ``zero_init`` (STN3D's ``fc3``) start at zero, weight and bias, as
+    their JAX initialisers make them. BatchNorm scale and running variance
+    are uniform in [0.5, 1.5] and its bias and running mean normal with
+    std 0.1, away from the 1/0 defaults, so that an eval forward exercises
+    every BN.
     """
     for module in model.modules():
         own = [*module.named_parameters(recurse=False), *module.named_buffers(recurse=False)]
+        fans = getattr(module, "init_fan", {})
         for name, t in own:
             shape = tuple(t.shape)
             if isinstance(module, BatchNorm) and name in ("weight", "running_var"):
@@ -125,10 +131,16 @@ def seeded_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             else:
                 if isinstance(module, nn.Linear):
                     fan = shape[1]
+                elif name in fans:
+                    fan = fans[name]
                 else:
                     fan = shape[-2] if len(shape) >= 2 else shape[0]
                 value = torch.randn(shape, generator=generator) / fan ** 0.5
             t.copy_(value.to(t.dtype))
+    for module in model.modules():
+        for child in getattr(module, "zero_init", ()):
+            for t in getattr(module, child).parameters():
+                t.zero_()
     return model
 
 
@@ -136,8 +148,10 @@ def seeded_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 def training_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """A model as training starts from it (the CLIs' initialisation, where
     the JAX CLIs call ``model.init``): the weights of :func:`seeded_init_`
-    (normal with std ``1/sqrt(fan_in)``), zero biases, and every BatchNorm
-    at its defaults (scale 1, bias 0, running mean 0, running variance 1)."""
+    (normal with std ``1/sqrt(fan_in)``, the ``zero_init`` modules at
+    zero, so every STN3D starts at the identity), zero biases, and every
+    BatchNorm at its defaults (scale 1, bias 0, running mean 0, running
+    variance 1)."""
     seeded_init_(model, generator)
     for module in model.modules():
         for name, t in [*module.named_parameters(recurse=False), *module.named_buffers(recurse=False)]:

@@ -1,9 +1,16 @@
-"""NetVLAD aggregation heads of PatchAugNet.
+"""NetVLAD aggregation heads.
 
-Port of ``NetVLADBase``, ``GatingContext`` and ``SpatialPyramidNetVLAD``
-of ``patchaugnet_tpu/nn/vlad.py`` (reference ``loupe.py:159-361``), with
-all six aggregation types (0=FC, 1/4/5=AFA combos, 2=APFA2, the paper's,
-3=max-pool). Inputs are channels-last ``(B, N, C)`` point features.
+Port of ``patchaugnet_tpu/nn/vlad.py``: ``NetVLADBase``, ``GatingContext``
+and PatchAugNet's ``SpatialPyramidNetVLAD`` (reference
+``loupe.py:159-361``) with all six aggregation types (0=FC, 1/4/5=AFA
+combos, 2=APFA2, the paper's, 3=max-pool); PPT-Net's
+``PPTSpatialPyramidNetVLAD`` (pptnet ``loupe.py:73-105``) and
+PointNetVLAD's ``NetVLADLoupe`` (``PointNetVlad.py:12-81``). Inputs are
+channels-last ``(B, N, C)`` point features.
+
+A raw weight whose JAX initialiser takes another fan than its
+second-to-last axis names it in ``init_fan`` (``nn.seeded_init_``): the
+FC weights of the last two heads have std ``1/sqrt(feature_size)``.
 """
 from __future__ import annotations
 
@@ -40,15 +47,24 @@ class NetVLADBase(nn.Module):
 
 
 class GatingContext(nn.Module):
-    """Context gating over a ``(B, D)`` descriptor."""
+    """Context gating over a ``(B, D)`` descriptor: ``x * sigmoid(bn1(x W))``,
+    or ``x * sigmoid(x W + gating_biases)`` without the BatchNorm."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, add_batch_norm: bool = True):
         super().__init__()
         self.gating_weights = nn.Parameter(torch.empty(dim, dim))
-        self.bn1 = BatchNorm(dim)
+        if add_batch_norm:
+            self.bn1 = BatchNorm(dim)
+        else:
+            self.gating_biases = nn.Parameter(torch.empty(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * torch.sigmoid(self.bn1(x @ self.gating_weights))
+        gates = x @ self.gating_weights
+        if hasattr(self, "bn1"):
+            gates = self.bn1(gates)
+        else:
+            gates = gates + self.gating_biases
+        return x * torch.sigmoid(gates)
 
 
 class SpatialPyramidNetVLAD(nn.Module):
@@ -131,3 +147,56 @@ class SpatialPyramidNetVLAD(nn.Module):
         if self.gating:
             vlad = self.context_gating(vlad)
         return vlad
+
+
+class PPTSpatialPyramidNetVLAD(nn.Module):
+    """PPT-Net's multi-scale VLAD: ``[(B, N_i, C_i)] -> (B, output_dim[0])``.
+
+    Each scale's VLAD ``vlad{i}`` flattened channel-major to ``(B, C*K_i)``,
+    the scales concatenated, one product with ``hidden_weights`` of shape
+    ``(C_0 * sum(K), D_0)``, the BatchNorm ``bn2``, and context gating when
+    ``gating``.
+    """
+
+    def __init__(self, feature_size: Sequence[int], cluster_size: Sequence[int], output_dim: Sequence[int],
+                 gating: bool = True):
+        super().__init__()
+        self.scales = len(feature_size)
+        for i in range(self.scales):
+            setattr(self, f"vlad{i}", NetVLADBase(feature_size[i], cluster_size[i]))
+        c0, d0 = feature_size[0], output_dim[0]
+        self.hidden_weights = nn.Parameter(torch.empty(c0 * sum(cluster_size), d0))
+        self.init_fan = {"hidden_weights": c0}
+        self.bn2 = BatchNorm(d0)
+        self.context_gating = GatingContext(d0) if gating else None
+
+    def forward(self, features: List[torch.Tensor]) -> torch.Tensor:
+        if len(features) != self.scales:
+            raise ValueError(f"expected {self.scales} scales, got {len(features)}")
+        flats = [_flatten_ck(getattr(self, f"vlad{i}")(f)) for i, f in enumerate(features)]
+        vlad = self.bn2(torch.cat(flats, dim=-1) @ self.hidden_weights)
+        if self.context_gating is not None:
+            vlad = self.context_gating(vlad)
+        return vlad
+
+
+class NetVLADLoupe(nn.Module):
+    """PointNetVLAD's head, ``(B, N, C) -> (B, output_dim)``: the VLAD
+    ``base`` (intra-normalised), a channel-major flatten, a global L2 norm,
+    the product with ``hidden1_weights`` of shape ``(K*C, D)``, the
+    BatchNorm ``bn2``, and context gating when ``gating``."""
+
+    def __init__(self, feature_size: int, cluster_size: int, output_dim: int, gating: bool = True):
+        super().__init__()
+        self.base = NetVLADBase(feature_size, cluster_size)
+        self.hidden1_weights = nn.Parameter(torch.empty(cluster_size * feature_size, output_dim))
+        self.init_fan = {"hidden1_weights": feature_size}
+        self.bn2 = BatchNorm(output_dim)
+        self.context_gating = GatingContext(output_dim) if gating else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        flat = l2_normalize(_flatten_ck(self.base(x)), dim=-1)
+        out = self.bn2(flat @ self.hidden1_weights)
+        if self.context_gating is not None:
+            out = self.context_gating(out)
+        return out

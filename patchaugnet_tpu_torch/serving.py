@@ -1,24 +1,28 @@
-"""Descriptor serving: the eval forwards of PatchAugNet.
+"""Descriptor serving: the eval forwards of the port's models.
 
 Counterparts of ``build_forward_fn`` / ``build_local_forward_fn`` of
 ``patchaugnet_tpu/train/step.py``: a callable that takes a batch of
 ``(B, N, 3)`` f32 clouds and returns global descriptors ``(B, D)``, or
 ``(global, local, center_idx)`` with local = the second-to-last
 feature-propagation level and centre indices = level-1 centres in the
-input cloud. Each batch runs under ``torch.inference_mode()`` on the
-model's device, with the model in eval mode whatever mode it was left
-in (a train step puts it in train mode), and leaves that mode as it was:
-the JAX forwards pass ``train=False`` on every call. (The JAX package's
+input cloud, for the models that have them (PatchAugNet, PPT-Net; the
+local forward of PointNetVLAD is ``None``). Each batch runs under
+``torch.inference_mode()`` on the model's device, with the model in eval
+mode whatever mode it was left in (a train step puts it in train mode),
+and leaves that mode as it was: the JAX forwards pass ``train=False`` on
+every call. (The JAX package's
 exported artifact has no counterpart yet.)
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Iterator, Tuple, Union
+from typing import Callable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+
+from .models import PatchAugNet, PPTNet
 
 Clouds = Union[torch.Tensor, np.ndarray]
 
@@ -58,6 +62,19 @@ def _eval_mode(model: nn.Module) -> Iterator[None]:
         model.train(was_training)
 
 
+def global_desc(out) -> torch.Tensor:
+    """The global descriptor of a model's output: the output itself where
+    the model returns a bare tensor (PointNetVLAD), else its
+    ``global_desc`` (the JAX step's ``_global_desc``)."""
+    return out if isinstance(out, torch.Tensor) else out.global_desc
+
+
+def has_local_fields(model: nn.Module) -> bool:
+    """Whether ``model``'s output carries ``fp_features`` and
+    ``center_idx_origin`` (PatchAugNet, PPT-Net)."""
+    return isinstance(model, (PatchAugNet, PPTNet))
+
+
 def build_forward_fn(model: nn.Module, device: Union[str, torch.device] = "cuda") -> Callable:
     """``(B, N, 3) clouds -> (B, D)`` global descriptors on ``device``."""
     device = _prepare(model, device)
@@ -65,13 +82,17 @@ def build_forward_fn(model: nn.Module, device: Union[str, torch.device] = "cuda"
     def forward(clouds: Clouds) -> torch.Tensor:
         with _eval_mode(model):
             x = torch.as_tensor(clouds, dtype=torch.float32, device=device)
-            return model(x).global_desc
+            return global_desc(model(x))
 
     return forward
 
 
-def build_local_forward_fn(model: nn.Module, device: Union[str, torch.device] = "cuda") -> Callable:
-    """``(B, N, 3) clouds -> (global (B, D), local (B, K, C), center_idx (B, K))``."""
+def build_local_forward_fn(model: nn.Module, device: Union[str, torch.device] = "cuda") -> Optional[Callable]:
+    """``(B, N, 3) clouds -> (global (B, D), local (B, K, C), center_idx (B, K))``,
+    or ``None`` for a model without local descriptors (PointNetVLAD), as
+    the JAX function returns."""
+    if not has_local_fields(model):
+        return None
     device = _prepare(model, device)
 
     def forward(clouds: Clouds) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -1,4 +1,4 @@
-"""The train step of PatchAugNet.
+"""The train step of the port's models (PatchAugNet, PPT-Net, PointNetVLAD).
 
 Port of ``patchaugnet_tpu/train/step.py``: the reference's per-batch
 train loop body (``train_place_recognition.py:221-392``: forward, quadruplet loss,
@@ -21,7 +21,7 @@ from torch import nn
 from .. import losses as L
 from ..losses.patch_contrast import PatchCorrespondences
 from ..ops import farthest_point_sample
-from ..serving import build_forward_fn, build_local_forward_fn, resolve_device
+from ..serving import build_forward_fn, build_local_forward_fn, global_desc, resolve_device
 from .state import TrainState
 
 __all__ = [
@@ -98,7 +98,7 @@ def make_loss_fn(model: nn.Module, cfg: Dict[str, Any]) -> Callable:
             sel = _first_true(cloud_mask, r)
             sel_valid = torch.arange(r, device=clouds.device) < cloud_mask.sum()
             out = model(clouds, with_patches=True, patch_rows=sel)
-        q, p, n, o = _split_tuple(out.global_desc, batch_size, num_pos, num_neg)
+        q, p, n, o = _split_tuple(global_desc(out), batch_size, num_pos, num_neg)
         metrics = {"place_recognition": pr_loss(q, p, n, o, m1, m2, use_min=use_min, lazy=lazy,
                                                 ignore_zero_loss=ignore_zero)}
         if use_a2a:

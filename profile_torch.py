@@ -2,23 +2,28 @@
 """Where the time of the port's PatchAugNet forward, of its kernels, or of
 its auction EMD, goes on the card.
 
-    python3 profile_torch.py [--batch 32] [--iters 5] [--table PATH] [--root DIR]
-    python3 profile_torch.py --kernels [--lanes] [--layouts] [--warps] [--batch 32] [--root DIR]
+    python3 profile_torch.py [--model M] [--batch 32] [--iters 5] [--table PATH] [--root DIR]
+    python3 profile_torch.py --kernels [--model M] [--lanes] [--layouts] [--warps] [--batch 32] [--root DIR]
     python3 profile_torch.py --emd [--table PATH] [--root DIR]
-    python3 profile_torch.py --train [--iters 5] [--table PATH] [--root DIR]
+    python3 profile_torch.py --train [--model M] [--iters 5] [--table PATH] [--root DIR]
 
-Serves the full-width PatchAugNet (``configs.PATCH_AUG_NET``, seeded
-random weights) through ``serving.build_forward_fn`` and reports, per
-forward:
+``--model`` is ``patch_aug_net`` (the default), ``pptnet``,
+``pptnet_l2_norm`` or ``pointnet_vlad``, each at the full width of its
+config (``configs.PATCH_AUG_NET``, ``PPTNET_ORIGIN``, ``POINTNET_VLAD``).
+Serves the model (seeded random weights) through
+``serving.build_forward_fn`` and reports, per forward:
 
-- each top-level stage (``sa0..sa2``, ``fp2..fp0``, ``aggregation``) in
-  device time, bracketed by CUDA events from forward hooks;
+- each stage (PatchAugNet's ``sa0..sa2``, ``fp2..fp0``, ``aggregation``;
+  PPT-Net's ``sa0..sa3``, ``fp3..fp0``, ``aggregation``; PointNetVLAD's
+  ``point_net`` with its two STNs inside it, and ``net_vlad``) in device
+  time, bracketed by CUDA events from forward hooks;
 - the host wall time, descriptors/s and the peak device memory, and the
   device's busy share over the same window;
 - the top operators and kernels by self device time from
   ``torch.profiler`` (``--table`` writes the full table to a file).
 
-With ``--kernels`` it times each kernel at the shapes its path gives it,
+With ``--kernels`` it times each kernel at the shapes its path gives it
+(with ``--model pptnet``, K1 and K2 at PPT-Net's four levels only),
 ``chip_smoke.py``'s cases with its bounds and yardsticks (K1 at the three
 SA levels; K2 at the three SA levels at k=20 and the three FP levels'
 3-NN at k=3; K3 on the FP levels' distance matrices, the 3-NN's former
@@ -54,9 +59,10 @@ launch, then one exact call under ``torch.profiler`` with the device's
 busy share, kernels per iteration, K6's share (every instantiation) and
 the top device kernels.
 
-With ``--train`` it runs the flagship train step instead
-(``configs.PATCH_AUG_NET_TRAIN``, ``chip_smoke.py``'s batch of 72 clouds
-of 4096 points and its correspondence tables): the host wall per step
+With ``--train`` it runs the model's train step instead (PatchAugNet's
+``configs.PATCH_AUG_NET_TRAIN`` with ``chip_smoke.py``'s batch of 72 clouds
+of 4096 points and its correspondence tables; PPT-Net's tuple batch of 18
+and PointNetVLAD's of 44 clouds, without tables): the host wall per step
 of ``train.build_train_step``, clouds/s and peak memory; the device ms of
 the same step's parts from CUDA events that hooks record: the forward and
 each of its stages and the patch decoder (module hooks), the losses (from
@@ -83,7 +89,17 @@ sys.path.insert(0, ROOT)
 import chip_smoke as smoke  # noqa: E402
 from chip_smoke import time_ms  # noqa: E402
 N_POINTS = 4096
-STAGES = ("sa0", "sa1", "sa2", "fp2", "fp1", "fp0", "aggregation")
+# per model: its forward's config, its train step's, and its stages (a
+# dotted name is a stage inside the one before it, not summed)
+MODELS = {
+    "patch_aug_net": ("PATCH_AUG_NET", "PATCH_AUG_NET_TRAIN",
+                      ("sa0", "sa1", "sa2", "fp2", "fp1", "fp0", "aggregation")),
+    "pptnet": ("PPTNET_ORIGIN", "PPTNET_ORIGIN",
+               ("sa0", "sa1", "sa2", "sa3", "fp3", "fp2", "fp1", "fp0", "aggregation")),
+    "pointnet_vlad": ("POINTNET_VLAD", "POINTNET_VLAD",
+                      ("point_net", "point_net.stn", "point_net.feature_trans", "net_vlad")),
+}
+MODELS["pptnet_l2_norm"] = MODELS["pptnet"]
 EMD_B, EMD_N, EMD_EPS, EMD_ITERS = 4, 4096, 0.02, 1024  # losses/pointnetvlad_loss.py:205-221
 
 
@@ -133,10 +149,12 @@ def sm_clock_mhz():
     return float(out.stdout.strip().splitlines()[0])
 
 
-def profile_kernels(torch, card, dev, batch, lanes_sweep, layouts_sweep, warps_sweep):
+def profile_kernels(torch, card, dev, batch, lanes_sweep, layouts_sweep, warps_sweep, model="patch_aug_net"):
     """K1-K4 and K6 at their paths' shapes: ``chip_smoke.py``'s cases, bounds
     and yardsticks, with the profiler's device time per launch beside each
-    and the wrapper's host cost (per call minus device per call)."""
+    and the wrapper's host cost (per call minus device per call). For a
+    PPT-Net, K1 and K2 at its four levels only (no other kernel is on its
+    path)."""
     from patchaugnet_tpu_torch import ops
     from patchaugnet_tpu_torch.ops.cuda import _build as cuda
 
@@ -166,9 +184,11 @@ def profile_kernels(torch, card, dev, batch, lanes_sweep, layouts_sweep, warps_s
         args = (out, b, m, threads) if has_layouts else (out, b, n, m)
         return device_ms(torch, lambda: cuda.launch("fps", "pan_fps_step_floor", dev, *args), 20, "step_floor")[0]
 
+    ppt = model.startswith("pptnet")
+    levels = smoke.PPT_LEVELS if ppt else smoke.PATCH_LEVELS
     gen = torch.Generator(device=dev).manual_seed(0)
-    x = smoke.level_clouds(torch, ops, ops.farthest_point_sample, gen, batch)
-    for lv in range(3):
+    x = smoke.level_clouds(torch, ops, ops.farthest_point_sample, gen, batch, levels)
+    for lv in range(len(levels)):
         pts, m = x[lv], x[lv + 1].shape[1]
         n = pts.shape[1]
         layout = fps.layout_for(n) if has_layouts else None
@@ -218,6 +238,8 @@ def profile_kernels(torch, card, dev, batch, lanes_sweep, layouts_sweep, warps_s
                 if -(-k // g) <= knn._MAX_SLOTS:
                     report(f"K2 knn {label} lanes={g}", lambda: knn._knn_cuda(pts, qry, k, lanes=g),
                            "knn_kernel", b_ms, b_by)
+    if ppt:
+        return 0
     for lv in range(3):
         dist = ops.pairwise_sqdist(x[lv], x[lv + 1])
         m, n = dist.shape[1], dist.shape[2]
@@ -366,19 +388,20 @@ def profile_emd(torch, card, dev, table):
     return 0
 
 
-TRAIN_STAGES = STAGES + ("decoder",)
 
 
-def profile_train(torch, card, dev, iters, table):
+def profile_train(torch, card, dev, iters, table, model_type="patch_aug_net"):
     """The train step at full width: wall per step, its parts' device ms
     from CUDA events, and the profiler's busy share and top kernels."""
-    from patchaugnet_tpu_torch import configs, train
+    from patchaugnet_tpu_torch import configs, serving, train
     from patchaugnet_tpu_torch.models import get_model
     from patchaugnet_tpu_torch.nn import seeded_init_
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = configs.PATCH_AUG_NET_TRAIN
-    model = seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(5))
+    _, cfg_name, stages = MODELS[model_type]
+    cfg = dict(getattr(configs, cfg_name), model_type=model_type)
+    stages = stages + (("decoder",) if model_type == "patch_aug_net" else ())
+    model = seeded_init_(get_model(model_type, cfg), torch.Generator().manual_seed(5))
     state = train.create_train_state(model, cfg, device=dev)
     clouds, mask, corr = smoke.train_batch(torch, cfg, dev, seed=6)
     step = train.build_train_step(model, cfg)
@@ -392,14 +415,14 @@ def profile_train(torch, card, dev, iters, table):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"[{card}] train step, {clouds.shape[0]} clouds: {wall_ms:.3f} ms per step (host wall), "
+    print(f"[{card}] {model_type} train step, {clouds.shape[0]} clouds: {wall_ms:.3f} ms per step (host wall), "
           f"{clouds.shape[0] / wall_ms * 1e3:.1f} clouds/s, peak memory {peak:.3f} GiB", flush=True)
 
     # the parts of the real step, bracketed by CUDA events from hooks: the
     # model's forward hooks, a gradient hook on each of its outputs (the
     # first to fire ends "loss", the loss terms' forward and backward), and
     # the optimizer's step hooks (its pre-hook ends "backward")
-    marks = {name: [] for name in TRAIN_STAGES + ("forward", "loss", "backward", "optimizer")}
+    marks = {name: [] for name in stages + ("forward", "loss", "backward", "optimizer")}
 
     def event():
         ev = torch.cuda.Event(enable_timing=True)
@@ -421,8 +444,9 @@ def profile_train(torch, card, dev, iters, table):
 
     def outputs_hook(module, args, out):
         close("forward", then="loss")
-        pd = out.patch_data
-        for t in (out.global_desc, pd.patch_features, pd.reconstructed_patches):
+        pd = getattr(out, "patch_data", None)
+        outs = (serving.global_desc(out),) + ((pd.patch_features, pd.reconstructed_patches) if pd else ())
+        for t in outs:
             if t is not None and t.requires_grad:
                 t.register_hook(first_grad)
 
@@ -431,8 +455,8 @@ def profile_train(torch, card, dev, iters, table):
                model.register_forward_hook(outputs_hook),
                state.optimizer.register_step_pre_hook(lambda opt, a, k: close("backward", then="optimizer")),
                state.optimizer.register_step_post_hook(lambda opt, a, k: close("optimizer"))]
-    for name in TRAIN_STAGES:
-        sub = getattr(model, name)
+    for name in stages:
+        sub = model.get_submodule(name)
         handles.append(sub.register_forward_pre_hook(lambda m, a, name=name: open_(name)))
         handles.append(sub.register_forward_hook(lambda m, a, o, name=name: close(name)))
     for _ in range(iters):
@@ -445,7 +469,7 @@ def profile_train(torch, card, dev, iters, table):
     for name in ("forward", "loss", "backward", "optimizer"):
         print(f"[{card}] train {name}: {part[name]:.3f} ms ({part[name] / whole:.1%} of {whole:.3f} ms)",
               flush=True)
-    for name in TRAIN_STAGES:
+    for name in stages:
         print(f"[{card}]   forward stage {name}: {part[name]:.3f} ms", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -482,6 +506,8 @@ def main():
     parser.add_argument("--warps", action="store_true",
                         help="with --kernels: the top-k kernel at every warps-per-row count")
     parser.add_argument("--train", action="store_true", help="profile the train step instead")
+    parser.add_argument("--model", default="patch_aug_net", choices=sorted(MODELS),
+                        help="the model whose forward, kernels or train step to profile")
     parser.add_argument("--root", default=ROOT, help="checkout to import patchaugnet_tpu_torch from")
     args = parser.parse_args()
 
@@ -504,11 +530,11 @@ def main():
     if args.emd:
         return profile_emd(torch, card, dev, args.table)
     if args.kernels:
-        return profile_kernels(torch, card, dev, args.batch, args.lanes, args.layouts, args.warps)
+        return profile_kernels(torch, card, dev, args.batch, args.lanes, args.layouts, args.warps, args.model)
     if args.train:
-        return profile_train(torch, card, dev, args.iters, args.table)
-    model = seeded_init_(get_model("patch_aug_net", configs.PATCH_AUG_NET),
-                         torch.Generator().manual_seed(0))
+        return profile_train(torch, card, dev, args.iters, args.table, args.model)
+    cfg_name, _, stages = MODELS[args.model]
+    model = seeded_init_(get_model(args.model, getattr(configs, cfg_name)), torch.Generator().manual_seed(0))
     forward = serving.build_forward_fn(model, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     clouds = torch.rand(args.batch, N_POINTS, 3, generator=gen, device=dev)
@@ -522,11 +548,11 @@ def main():
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"[{card}] B={args.batch}: {wall_ms:.3f} ms per forward (host wall), "
+    print(f"[{card}] {args.model} B={args.batch}: {wall_ms:.3f} ms per forward (host wall), "
           f"{args.batch / wall_ms * 1e3:.1f} descriptors/s, peak memory {peak:.3f} GiB", flush=True)
 
     # stage times: CUDA events around each top-level submodule
-    marks = {name: [] for name in STAGES}
+    marks = {name: [] for name in stages}
 
     def pre(name):
         def hook(module, inputs):
@@ -543,17 +569,17 @@ def main():
         return hook
 
     handles = []
-    for name in STAGES:
-        sub = getattr(model, name)
+    for name in stages:
+        sub = model.get_submodule(name)
         handles += [sub.register_forward_pre_hook(pre(name)), sub.register_forward_hook(post(name))]
     for _ in range(args.iters):
         forward(clouds)
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
-    stage_ms = {name: sum(a.elapsed_time(b) for a, b in marks[name]) / args.iters for name in STAGES}
-    total = sum(stage_ms.values())
-    for name in STAGES:
+    stage_ms = {name: sum(a.elapsed_time(b) for a, b in marks[name]) / args.iters for name in stages}
+    total = sum(ms for name, ms in stage_ms.items() if "." not in name)
+    for name in stages:
         print(f"[{card}] stage {name}: {stage_ms[name]:.3f} ms ({stage_ms[name] / total:.1%} of "
               f"{total:.3f} ms in stages)", flush=True)
 

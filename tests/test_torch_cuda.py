@@ -429,6 +429,33 @@ def test_fps_and_knn_at_the_train_batch(device, rng):
         assert torch.equal(gi, ri) and torch.equal(gd, rd)
 
 
+# PPT-Net's SA levels (configs/pptnet_origin.yaml): 4096 -> 1024 -> 256 -> 64 -> 16
+_PPT_LEVELS = (4096, 1024, 256, 64, 16)
+
+
+@pytest.mark.parametrize("b", [18, 32, 100])
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+def test_fps_and_knn_at_pptnet_levels(device, rng, b, ties):
+    """K1 at PPT-Net's four SA levels (n = 4096, 1024, 256, 64: layouts
+    (512, 8), (1024, 1), (32, 8), (32, 2)) and K2 at its four SA levels
+    (k=20) and four FP levels' 3-NN, at the serving, eval and tuple
+    batches: indices and d2 equal to the plain versions, one launch each."""
+    x = [_cloud(rng, b, _PPT_LEVELS[0], device, ties=ties)]
+    for m in _PPT_LEVELS[1:]:
+        before = fps_ops.launches
+        idx = ops.farthest_point_sample(x[-1], m)
+        assert fps_ops.launches == before + 1
+        assert torch.equal(idx, fps_ops._farthest_point_sample_torch(x[-1], m))
+        x.append(ops.gather(x[-1], idx))
+    cases = [(x[lv], x[lv + 1], 20) for lv in range(4)] + [(x[lv + 1], x[lv], 3) for lv in range(4)]
+    for pts, qry, k in cases:
+        before = knn_ops.launches
+        gi, gd = ops.knn(pts, qry, k)
+        assert knn_ops.launches == before + 1
+        ri, rd = knn_ops._knn_torch(pts, qry, k)
+        assert torch.equal(gi, ri) and torch.equal(gd, rd), (pts.shape[1], qry.shape[1], k)
+
+
 def _tiny_train_batch(rng, cfg):
     """Seeded clouds, mask (queries and positives) and correspondence
     tables for ``cfg``'s tuple batch; pair 2 has no valid row."""

@@ -126,8 +126,10 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    with pytest.raises(ValueError, match="not ported"):
-        get_model("pptnet", TINY)
+    with pytest.raises(ValueError, match="not ported yet .ROADMAP A10"):
+        get_model("minkloc3dv2", TINY)
+    with pytest.raises(ValueError, match="unknown model_type"):
+        get_model("pointnet", TINY)
     for key, value in (("COMPUTE_DTYPE", "bfloat16"), ("KNN_APPROX_RECALL", 0.95)):
         with pytest.raises(NotImplementedError, match=key):
             PatchAugNet(dict(TINY, **{key: value}))
@@ -175,7 +177,13 @@ def test_config_copy_matches_yaml():
     assert configs.PATCH_AUG_NET_TRAIN == cfg
     with open(os.path.join(REPO, "configs", "tiny_smoke.yaml")) as f:
         assert configs.TINY_SMOKE == yaml.safe_load(f)
-    assert set(configs.KNOWN_CONFIGS) == {"patch_aug_net.yaml", "tiny_smoke.yaml"}
+    # PPT-Net and PointNetVLAD: every key of their files
+    for name, copy_ in (("pptnet_origin.yaml", configs.PPTNET_ORIGIN), ("pointnet_vlad.yaml", configs.POINTNET_VLAD)):
+        with open(os.path.join(REPO, "configs", name)) as f:
+            assert copy_ == yaml.safe_load(f), name
+        assert configs.KNOWN_CONFIGS[name] is copy_
+    assert set(configs.KNOWN_CONFIGS) == {"patch_aug_net.yaml", "tiny_smoke.yaml", "pptnet_origin.yaml",
+                                          "pointnet_vlad.yaml"}
 
 
 _IMPORT_EVERY_MODULE = """
@@ -197,7 +205,8 @@ assert not leaked, leaked
 for name in ("train", "train.state", "train.step", "losses.metric", "losses.patch_contrast", "nn.pointnet",
              "train.loop", "data", "data.dataset_info", "data.pointclouds", "data.retrieval", "data.overlap",
              "data.query_overlap_pb2", "data.scene_dataset", "data.tuple_dataset", "utils",
-             "utils.logging_util", "utils.meters", "utils.timestamps"):
+             "utils.logging_util", "utils.meters", "utils.timestamps", "models.pptnet", "models.pointnet_vlad",
+             "nn.attention", "nn.vlad"):
     assert "patchaugnet_tpu_torch." + name in names, name
 print(len(names))
 """
@@ -214,4 +223,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_EVERY_MODULE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 35
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 37

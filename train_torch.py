@@ -8,13 +8,15 @@ per-epoch checkpoints, the optional per-epoch eval
 the card; ``--platform cpu`` runs it on the CPU, and without a CUDA device
 and without that flag it exits with a message.
 
-Not ported, each refused with the ROADMAP item that brings it: models
-other than ``patch_aug_net`` (A7 PPT-Net, A8 PointNetVLAD, A10
-MinkLoc3Dv2), ``--devices`` above 1 (A11), ``--precision bfloat16`` (A3),
-``--print-flops`` (A12) and ``LOSS_FUNCTION: truncatedsmoothap`` (A9).
+It trains ``patch_aug_net``, ``pptnet``, ``pptnet_l2_norm`` and
+``pointnet_vlad``. Not ported, each refused with the ROADMAP item that
+brings it: ``minkloc3dv2`` (A10), ``--devices`` above 1 (A11),
+``--precision bfloat16`` (A3), ``--print-flops`` (A12) and
+``LOSS_FUNCTION: truncatedsmoothap`` (A9).
 
 Usage:
   python train_torch.py --config configs/patch_aug_net.yaml --dataset oxford
+  python train_torch.py --config configs/pptnet_origin.yaml --dataset synthetic --max-batches 5 --epochs 1
   python train_torch.py --config configs/patch_aug_net.yaml --dataset synthetic \
       --max-batches 5 --epochs 1        # no data on disk needed
   python train_torch.py --config configs/tiny_smoke.yaml --dataset synthetic \
@@ -29,7 +31,7 @@ from datetime import datetime
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # model types of the JAX package that the port does not have yet, by ROADMAP item
-UNPORTED_MODELS = {"pptnet": "A7", "pptnet_l2_norm": "A7", "pointnet_vlad": "A8", "minkloc3dv2": "A10"}
+UNPORTED_MODELS = {"minkloc3dv2": "A10"}
 
 
 def get_args(argv=None):
@@ -89,9 +91,9 @@ def build_cfg(args):
 
 def refuse_unported(cfg, args):
     """Raise ``NotImplementedError`` for what the port does not have yet."""
-    if cfg["model_type"] != "patch_aug_net":
-        item = UNPORTED_MODELS.get(cfg["model_type"], "A7-A10")
-        raise NotImplementedError(f"model_type {cfg['model_type']!r} is not ported yet (ROADMAP {item})")
+    if cfg["model_type"] in UNPORTED_MODELS:
+        raise NotImplementedError(f"model_type {cfg['model_type']!r} is not ported yet "
+                                  f"(ROADMAP {UNPORTED_MODELS[cfg['model_type']]})")
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError("--devices above 1: data-parallel training is not ported yet (ROADMAP A11)")
     if args.precision == "bfloat16":
@@ -133,7 +135,9 @@ def main(argv=None):
     logger.info(cfg)
     writer = MetricsWriter(cfg["event_dir"])
 
-    use_patches = bool(cfg.get("use_patch_recon") or cfg.get("use_patch_feature_contrast"))
+    # the patch branch is PatchAugNet's: other models ignore the patch flags
+    use_patches = cfg["model_type"] == "patch_aug_net" and bool(
+        cfg.get("use_patch_recon") or cfg.get("use_patch_feature_contrast"))
     ds_kwargs = dict(
         num_pos=cfg["TRAIN_POSITIVES_PER_QUERY"],
         num_neg=cfg["TRAIN_NEGATIVES_PER_QUERY"],
