@@ -68,8 +68,10 @@ Phases, each fatal on failure:
    building, and the same epoch again under the profiler for the card's
    idle share; then ``evaluate_torch.py``'s ``main`` on the untrained
    model (no ``--weight``) and on the checkpoint (descriptors unit-norm,
-   recall@1 and 1% recall for the trip pair equal to the CPU retrieval's
-   on the same descriptors, the top-k dump written, K1 3 and K2 6
+   the picks that decide recall@1 and 1% recall equal to the CPU
+   retrieval's on the same descriptors at every query where they are not
+   an exact near-tie within the f32 rounding bound (``check_recall``),
+   the top-k dump written, K1 3 and K2 6
    launches per eval forward), and the eval's descriptor sweep timed 10
    times after a warm-up; then the train split's descriptor refresh (the
    model in eval mode during it and back in train mode after) and
@@ -96,10 +98,25 @@ Phases, each fatal on failure:
    statistics within 1e-6), then timed; PointNetVLAD served and its train
    step at 44 clouds timed, no kernel launched; then for each family
    ``train_torch.py`` on the synthetic scene for two batches (no overlap
-   tables) and ``evaluate_torch.py`` on its checkpoint (recall@1 and 1%
-   recall equal to the CPU retrieval's; PointNetVLAD's eval takes the
-   global forward);
-8. report: one ``{"kernels": [...]}`` line, the card's name and power
+   tables) and ``evaluate_torch.py`` on its checkpoint (recall checked
+   against the CPU retrieval's as in phase 6; PointNetVLAD's eval takes
+   the global forward);
+8. MinkLoc3Dv2 (``configs.MINKLOC3DV2``: the sparse voxel-table backend
+   at step 0.01, full capacity, seeded random weights), which launches
+   none of the port's kernels: 4 requests of 32 clouds served (no kernel
+   launch, finite descriptors), then descriptors/s at B=32 and B=100 and
+   the peak memory; 2 of the clouds through the same model on the CPU
+   (coords, every level's keys and mask, every route and up map equal,
+   descriptors within 1e-4); the level occupancy of the 32 served clouds;
+   the dense backend at its capped 48^3 grid on 4 of them, its FPN output
+   at the stored sites within 1e-5 of the sparse FPN's on the same
+   occupancy, shared weights; the SmoothAP step (AdamW, MultiStepLR) on a
+   pair-expanded batch of 16 clouds, one step from a deep copy on the
+   CPU (loss and ap within 1e-5 relative, new BatchNorm statistics within
+   1e-5), then 10 timed steps after 3 warm-up steps; ``train_torch.py``
+   for two SmoothAP batches and ``evaluate_torch.py`` on its checkpoint,
+   recall checked against the CPU retrieval's as in phase 6;
+9. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -133,7 +150,14 @@ PPT_LAUNCHES = {"fps": 4, "knn": 8}           # a PPT-Net forward or train step:
 # the provenance indices of each family's output held equal on the kernel and the plain path
 PROVENANCE = {"patch_aug_net": ("center_idx_origin", "sample_idx_origin"), "pptnet": ("center_idx_origin",)}
 FAMILY_BATCHES = (32, 100, 18)                # serving, the eval batch, PPT-Net's tuple batch
-FAMILY_CLI_BATCHES = 2                        # train_torch.py batches per family in phase 7
+FAMILY_CLI_BATCHES = 2                        # train_torch.py batches per family in phases 7 and 8
+MINK_CPU_CLOUDS = 2                           # served clouds held against the CPU in phase 8
+MINK_DENSE_CLOUDS = 4                         # clouds of the dense-against-sparse FPN check
+MINK_STEP_CLOUDS = 16                         # the SmoothAP batch (SMOOTHAP_BATCH_SIZE's default)
+MINK_DESC_TOL = 1e-4                          # descriptors, card against CPU
+MINK_FPN_TOL = 1e-5                           # dense against sparse FPN at the stored sites
+MINK_STEP_RTOL = 1e-5                         # SmoothAP loss and ap, card against CPU (relative)
+MINK_STATS_TOL = 1e-5                         # new BatchNorm statistics, card against CPU
 EMD_B, EMD_N, EMD_EPS, EMD_ITERS = 4, 4096, 0.02, 1024  # losses/pointnetvlad_loss.py:205-221
 EMD_TAIL_ROWS = 256                                     # the active-set width R at n=4096
 EMD_TAIL_VALID = (256, 240, 224, 208)                   # unassigned rows per cloud in the timed tail
@@ -1051,6 +1075,51 @@ def dist_bound(sq_q, sq_d, dim):
     return 2 * n * F32_UNIT / (1 - n * F32_UNIT) * (sq_q + sq_d)
 
 
+def check_recall(np, test_ds, what):
+    """The eval's recall on the card against the CPU retrieval's on the same
+    descriptors, query by query. Each side ranks f32 distances within e
+    (``dist_bound``) of the exact ones, so a rank's pick lies within 2e of
+    the rank's exact (float64) distance: at every rank that decides
+    recall@1 and 1% recall (the first ``threshold``), the two sides' picks
+    must lie within 2e of it, and must be equal unless another exact
+    distance lies within 2e of it (a near-tie may round either way).
+    Pairs' recalls can then differ only by near-tied queries. Leaves the
+    scene's retrieval on the CPU. Returns (pairs, queries, near-tied
+    queries whose picks differ)."""
+    on_card = test_ds.get_recall_precision(top_k=25, collect_query_results=True)
+    scene = test_ds.scene
+    scene.device = "cpu"
+    on_cpu = test_ds.get_recall_precision(top_k=25, collect_query_results=True)
+    descs = scene.global_descs.astype(np.float64)
+    sq = (descs ** 2).sum(-1)
+    trips = scene.trip_indices()
+    queries = differ = 0
+    for (qt, rt), card in on_card.items():
+        cpu = on_cpu[qt, rt]
+        if qt == rt:
+            raise AssertionError(f"{what}: a trip against itself is not compared here (its own leading match)")
+        db = np.asarray(trips[rt])
+        if card.threshold > 5 or len(card.query_results) != len(cpu.query_results):
+            raise AssertionError(f"{what}, trips {(qt, rt)}: {card.threshold} ranks decide, or the sides evaluated "
+                                 f"{len(card.query_results)} and {len(cpu.query_results)} queries")
+        for a, b in zip(card.query_results, cpu.query_results):
+            q = a["query"]
+            exact = ((descs[db] - descs[q]) ** 2).sum(-1)
+            dist = dict(zip(db.tolist(), exact.tolist()))
+            ranked = np.sort(exact)
+            tie = 2 * dist_bound(sq[q], sq[db].max(), descs.shape[1])
+            for j in range(card.threshold):
+                x, y = a["topN"][j], b["topN"][j]
+                off = max(abs(dist[x] - ranked[j]), abs(dist[y] - ranked[j]))
+                near = np.sum(np.abs(ranked - ranked[j]) <= tie) > 1
+                if off > tie or (x != y and not near):
+                    raise AssertionError(f"{what}, trips {(qt, rt)}, query {q}, rank {j}: card {x}, CPU {y}, "
+                                         f"{off:.3g} from the rank's exact distance (tie {tie:.3g})")
+            queries += 1
+            differ += a["topN"][:card.threshold] != b["topN"][:card.threshold]
+    return len(on_card), queries, differ
+
+
 def check_mined(np, retrieval, train_ds, mined):
     """Hard negatives mined on the card against the CPU retrieval's on the
     same descriptors, position by position. Each side ranks f32 distances
@@ -1233,18 +1302,12 @@ def phase_cli(torch, mods, records, step_ms):
         if result["num_pairs"] != 2 or not os.path.exists(result["top_k_path"]):
             raise AssertionError(f"CLI eval: {result['num_pairs']} trip pairs, top-k dump "
                                  f"{result.get('top_k_path')}")
-        on_card = test_ds.get_recall_precision(top_k=25)
-        test_ds.scene.device = "cpu"
-        on_cpu = test_ds.get_recall_precision(top_k=25)
-        for pair, res in on_card.items():
-            if (res.recall[0], res.one_percent_recall) != (on_cpu[pair].recall[0], on_cpu[pair].one_percent_recall):
-                raise AssertionError(f"CLI eval, trips {pair}: recall@1 and 1% recall on the card "
-                                     f"{res.recall[0]}, {res.one_percent_recall} differ from the CPU's "
-                                     f"{on_cpu[pair].recall[0]}, {on_cpu[pair].one_percent_recall}")
+        pairs, queries, ties = check_recall(np, test_ds, "CLI eval")
         measured(f"CLI evaluate_torch.py on the checkpoint, {len(test_ds)} test records",
                  f"recall@1 {result['recall_at_1']:.2f}, recall@1% {result['ave_one_percent_recall']:.2f} over "
-                 f"{result['num_pairs']} trip pairs (recall@1 and 1% recall equal to the CPU retrieval's on the "
-                 f"same descriptors); the untrained model (no --weight): recall@1 "
+                 f"{result['num_pairs']} trip pairs (the picks deciding them equal to the CPU retrieval's on the "
+                 f"same descriptors for {queries - ties} of {queries} queries, near-tied within the f32 bound for "
+                 f"{ties}); the untrained model (no --weight): recall@1 "
                  f"{untrained['recall_at_1']:.2f}, recall@1% {untrained['ave_one_percent_recall']:.2f}; the whole "
                  f"eval {eval_s:.2f} s; launches {eval_counts}; descriptors max |norm - 1| {norm_err:.2g}")
 
@@ -1382,8 +1445,8 @@ def cli_family(torch, mods, records, family, config, launches):
     """``train_torch.py`` for FAMILY_CLI_BATCHES batches of ``config`` on the
     synthetic scene, on the card (``launches`` per batch, no overlap tables:
     the patch branch is PatchAugNet's), then ``evaluate_torch.py`` on its
-    checkpoint: recall@1 and 1% recall equal to the CPU retrieval's on the
-    same descriptors, ``launches`` per eval forward; the eval's forward
+    checkpoint: recall checked against the CPU retrieval's on the same
+    descriptors (``check_recall``), ``launches`` per eval forward; the eval's forward
     choice takes the global forward for a model without local
     descriptors. Returns the train and eval launch counts."""
     import tempfile
@@ -1402,10 +1465,15 @@ def cli_family(torch, mods, records, family, config, launches):
         train_s = time.perf_counter() - t0
         train_counts = read_counts(mods, records)
         summary, cfg = run["summaries"][0], run["cfg"]
-        batches = summary["batches"]
-        if batches != FAMILY_CLI_BATCHES or summary["patch_batches"] or not np.isfinite(summary["total"]):
-            raise AssertionError(f"CLI {family}: {batches} batches, {summary['patch_batches']} with overlap tables, "
-                                 f"loss {summary['total']}")
+        smoothap = cfg.get("LOSS_FUNCTION", "").lower() == "truncatedsmoothap"
+        if smoothap:                    # flat batches: the step counts them, the loss is SmoothAP's
+            batches, loss, tables = run["state"].step, summary["loss"], 0
+            clouds = cfg.get("SMOOTHAP_BATCH_SIZE", 16)
+        else:
+            batches, loss, tables = summary["batches"], summary["total"], summary["patch_batches"]
+            clouds = cfg["TRAIN_BATCH_SIZE"] * (cfg["TRAIN_POSITIVES_PER_QUERY"] + cfg["TRAIN_NEGATIVES_PER_QUERY"] + 2)
+        if batches != FAMILY_CLI_BATCHES or tables or not np.isfinite(loss):
+            raise AssertionError(f"CLI {family}: {batches} batches, {tables} with overlap tables, loss {loss}")
         check_launches(train_counts, {k: v * batches for k, v in launches.items()}, f"CLI {family} train")
         ckpt = os.path.join(cfg["save_path"], "train_epoch_0_end")
         reset_counts(mods, records)
@@ -1419,25 +1487,20 @@ def cli_family(torch, mods, records, family, config, launches):
         descs = test_ds.scene.global_descs
         if descs.shape != (len(test_ds), 256) or not np.isfinite(descs).all():
             raise AssertionError(f"CLI {family} eval: descriptors {descs.shape} not finite ({len(test_ds)}, 256)")
-        on_card = test_ds.get_recall_precision(top_k=25)
-        test_ds.scene.device = "cpu"
-        on_cpu = test_ds.get_recall_precision(top_k=25)
-        for pair, res in on_card.items():
-            if (res.recall[0], res.one_percent_recall) != (on_cpu[pair].recall[0], on_cpu[pair].one_percent_recall):
-                raise AssertionError(f"CLI {family} eval, trips {pair}: recall@1 and 1% recall on the card differ "
-                                     f"from the CPU's")
+        pairs, queries, ties = check_recall(np, test_ds, f"CLI {family} eval")
         model = run["state"].model
         dev = next(model.parameters()).device
         chosen = evaluate_torch.eval_forward(model, dev, local=True)(test_ds.scene.get_clouds([0, 1])[0])
-        if isinstance(chosen, tuple) != (family != "pointnet_vlad"):
+        if isinstance(chosen, tuple) != (family not in ("pointnet_vlad", "minkloc3dv2")):
             raise AssertionError(f"CLI {family} eval: the forward choice took the wrong forward")
-        measured(f"CLI {family}: train_torch.py {batches} batches of "
-                 f"{cfg['TRAIN_BATCH_SIZE'] * (cfg['TRAIN_POSITIVES_PER_QUERY'] + cfg['TRAIN_NEGATIVES_PER_QUERY'] + 2)}"
+        measured(f"CLI {family}: train_torch.py {batches} {'SmoothAP ' if smoothap else ''}batches of {clouds}"
                  f" clouds on the {cfg['NUM_POINTS']}-point synthetic scene, then evaluate_torch.py on its checkpoint",
-                 f"train {train_s:.2f} s in all (the scene's set-up included), epoch loss {summary['total']:.6f}, "
+                 f"train {train_s:.2f} s in all (the scene's set-up{' and an eval' if smoothap else ''} included), "
+                 f"epoch loss {loss:.6f}, "
                  f"launches {train_counts}; eval recall@1 {result['recall_at_1']:.2f}, recall@1% "
-                 f"{result['ave_one_percent_recall']:.2f} over {result['num_pairs']} trip pairs (equal to the CPU "
-                 f"retrieval's), launches {eval_counts}; the eval's forward choice "
+                 f"{result['ave_one_percent_recall']:.2f} over {result['num_pairs']} trip pairs (the deciding picks "
+                 f"equal to the CPU retrieval's for {queries - ties} of {queries} queries, near-tied for {ties}), "
+                 f"launches {eval_counts}; the eval's forward choice "
                  f"{'local' if isinstance(chosen, tuple) else 'global'}")
     return train_counts, eval_counts
 
@@ -1495,6 +1558,202 @@ def phase_families(torch, ops, mods, records, dev):
     return paths
 
 
+def pyramid_tensors(pyramid):
+    """(name, tensor) of every table, map and count of a MinkLoc pyramid."""
+    out = [(f"level {i} keys", t.keys) for i, t in enumerate(pyramid.tables)]
+    out += [(f"level {i} mask", t.mask) for i, t in enumerate(pyramid.tables)]
+    out += [("conv0 routes", pyramid.conv0_routes), ("overflow", pyramid.overflow)]
+    out += [(f"block routes {i}", r) for i, r in enumerate(pyramid.block_routes)]
+    out += [(f"down routes {i}", r) for i, r in enumerate(pyramid.down_routes)]
+    for i, (idx, valid) in enumerate(pyramid.up_nbr):
+        out += [(f"up map {i}", idx), (f"up valid {i}", valid)]
+    return out
+
+
+def check_minkloc_cpu(torch, model, clouds, descs):
+    """The served model on ``clouds`` against a deep copy on the CPU:
+    coords, ``valid`` and every pyramid tensor equal, descriptors (served
+    on the card: ``descs``) within MINK_DESC_TOL."""
+    cpu = copy.deepcopy(model).cpu().eval()
+    model.eval()
+    with torch.inference_mode():
+        pairs = list(zip(zip(("coords", "valid"), model.quantize(clouds)[:2]),
+                         zip(("coords", "valid"), cpu.quantize(clouds.cpu())[:2])))
+        card_pyr, cpu_pyr = model.pyramid(clouds), cpu.pyramid(clouds.cpu())
+        if card_pyr.dims != cpu_pyr.dims:
+            raise AssertionError(f"minkloc3dv2: level dims {card_pyr.dims} on the card, {cpu_pyr.dims} on the CPU")
+        pairs += list(zip(pyramid_tensors(card_pyr), pyramid_tensors(cpu_pyr)))
+        for (name, a), (_, b) in pairs:
+            if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                raise AssertionError(f"minkloc3dv2 {name}: the card's differs from the CPU's")
+        err = (descs.cpu() - cpu(clouds.cpu())).abs().max().item()
+    if err > MINK_DESC_TOL:
+        raise AssertionError(f"minkloc3dv2: descriptors on the card differ from the CPU's by {err}")
+    say(f"minkloc3dv2 against the CPU on {clouds.shape[0]} clouds: coords, valid and {len(pairs) - 2} pyramid tensors "
+        f"(5 levels' keys and masks, conv0, 4 block and 4 down maps, 2 up maps, overflow) equal; descriptors max "
+        f"abs err {err:.3g}")
+
+
+def check_minkloc_dense(torch, model, clouds, dev):
+    """The dense backend at its capped grid (48^3, ``grid_size_for_step``
+    under ``max_grid_size`` 48) with ``model``'s weights: its FPN on the
+    occupancy grid of ``clouds`` against the sparse FPN on the voxel tables
+    of the same occupied cells, equal at the stored sites of the output
+    level within MINK_FPN_TOL; its descriptors finite."""
+    from patchaugnet_tpu_torch import configs
+    from patchaugnet_tpu_torch.models import get_model, minkloc3dv2 as mk, minkloc_sparse as ms
+
+    dense = get_model("minkloc3dv2", dict(configs.MINKLOC3DV2, backend="dense")).to(dev).eval()
+    dense.load_state_dict(model.state_dict())
+    model.eval()
+    levels = dense.backbone.num_bottom_up
+    with torch.inference_mode():
+        grid, occ = dense.voxelize(clouds)
+        g = occ.shape[1]
+        coords = torch.zeros(clouds.shape[0], clouds.shape[1], 3, dtype=torch.int32, device=dev)
+        valid = torch.zeros(clouds.shape[:2], dtype=torch.bool, device=dev)
+        for b in range(clouds.shape[0]):
+            cells = torch.nonzero(occ[b]).to(torch.int32)
+            coords[b, :len(cells)], valid[b, :len(cells)] = cells, True
+        pyr = ms.build_pyramid(coords, valid, (g, g, g), levels, dense.backbone.num_top_down,
+                               dense.conv0_kernel_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yd, dmask = dense.backbone(grid, mk.dense_masks(occ, levels))
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+        ys, _ = model.backbone(None, [t.mask for t in pyr.tables], pyr)
+        out = levels - dense.backbone.num_top_down
+        table, dims = pyr.tables[out], pyr.dims[out]
+        err, sites = 0.0, 0
+        for b in range(clouds.shape[0]):
+            cells = ms.decompose_keys(table.keys[b, table.mask[b]], dims).long()
+            if int(dmask[b].sum()) != len(cells) or not dmask[b][tuple(cells.T)].all():
+                raise AssertionError("minkloc3dv2 dense: the FPN output's occupancy differs from the sparse tables'")
+            err = max(err, (yd[b][tuple(cells.T)] - ys[b, table.mask[b]]).abs().max().item())
+            sites += len(cells)
+        desc = dense(clouds)
+    if err > MINK_FPN_TOL or not torch.isfinite(desc).all():
+        raise AssertionError(f"minkloc3dv2 dense: FPN max abs err {err} against the sparse FPN, or non-finite "
+                             f"descriptors")
+    measured(f"minkloc3dv2 dense backend at {g}^3 on {clouds.shape[0]} clouds",
+             f"FPN output at {sites} stored sites of level {out} within {err:.3g} of the sparse FPN's on the same "
+             f"occupancy (shared weights); dense FPN {dense_ms:.2f} ms; descriptors finite")
+
+
+def smoothap_batch(torch, dev, seed, clouds=MINK_STEP_CLOUDS):
+    """A pair-expanded batch: ``clouds // 2`` random clouds in [-1, 1]^3,
+    each followed by a copy moved by gaussian noise of 0.005 (its positive);
+    each pair positive, every other cloud a negative."""
+    gen = torch.Generator().manual_seed(seed)
+    anchors = torch.rand(clouds // 2, N_POINTS, 3, generator=gen) * 2 - 1
+    moved = anchors + 0.005 * torch.randn(anchors.shape, generator=gen)
+    pair = torch.arange(clouds) // 2
+    pos = (pair[:, None] == pair[None]) & ~torch.eye(clouds, dtype=torch.bool)
+    return torch.stack([anchors, moved], dim=1).reshape(clouds, N_POINTS, 3).to(dev), pos, pair[:, None] != pair[None]
+
+
+def minkloc_train(torch, mods, records, dev, cfg):
+    """The SmoothAP step (``train.build_smoothap_train_step``: AdamW at the
+    config's decay under MultiStepLR) at full width on ``smoothap_batch``:
+    no kernel launch; one step from a deep copy on the CPU, loss and ap
+    within MINK_STEP_RTOL and new BatchNorm statistics within
+    MINK_STATS_TOL; parameters and statistics changed and finite; then ms
+    per step, clouds/s and peak memory over TRAIN_STEPS steps after
+    TRAIN_WARMUP. Returns the launch counts."""
+    from patchaugnet_tpu_torch import train
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    model = seeded_init_(get_model("minkloc3dv2", cfg), torch.Generator().manual_seed(22))
+    schedule = train.multistep_schedule(cfg["BASE_LEARNING_RATE"], cfg.get("scheduler_milestones", [250, 350]), 1000)
+    step, tx = train.build_smoothap_train_step(model, schedule, weight_decay=cfg["WEIGHT_DECAY"], tau1=cfg["tau1"],
+                                               positives_per_query=cfg["positives_per_query"])
+    state = train.create_train_state(model, cfg, device=dev, tx=tx)
+    cpu_state = copy.deepcopy(state)
+    cpu_state.model.cpu()
+    clouds, pos, neg = smoothap_batch(torch, dev, seed=23)
+    params_before = [p.detach().clone() for p in state.model.parameters()]
+    stats_before = [b.clone() for b in state.model.buffers()]
+    reset_counts(mods, records)
+    t0 = time.perf_counter()
+    state, metrics = step(state, clouds, pos, neg)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts(mods, records)
+    check_launches(counts, {}, "minkloc3dv2 SmoothAP step")
+    t0 = time.perf_counter()
+    cpu_state, cpu_metrics = step(cpu_state, clouds.cpu(), pos, neg)
+    cpu_s = time.perf_counter() - t0
+    errs = {k: abs(metrics[k].item() - cpu_metrics[k].item()) / max(abs(cpu_metrics[k].item()), 1e-12)
+            for k in ("loss", "ap")}
+    stats_err = max((a.cpu() - b).abs().max().item() for a, b in zip(state.model.buffers(), cpu_state.model.buffers()))
+    param_err = max((a.detach().cpu() - b.detach()).abs().max().item()
+                    for a, b in zip(state.model.parameters(), cpu_state.model.parameters()))
+    if max(errs.values()) > MINK_STEP_RTOL or stats_err > MINK_STATS_TOL:
+        raise AssertionError(f"minkloc3dv2 SmoothAP step: loss/ap rel err {errs} or BN statistics max abs err "
+                             f"{stats_err} against the CPU")
+    if not 0 < metrics["loss"].item() < 1 or not all(torch.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"minkloc3dv2 SmoothAP step: metrics {metrics}")
+    if all(torch.equal(a, b) for a, b in zip(params_before, state.model.parameters())):
+        raise AssertionError("minkloc3dv2 SmoothAP step: no parameter changed")
+    if any(torch.equal(a, b) for a, b in zip(stats_before, state.model.buffers())):
+        raise AssertionError("minkloc3dv2 SmoothAP step: a BatchNorm statistic did not change")
+    if not all(torch.isfinite(p).all() for p in state.model.parameters()):
+        raise AssertionError("minkloc3dv2 SmoothAP step: a parameter is not finite")
+    del cpu_state, params_before, stats_before
+    say(f"minkloc3dv2 SmoothAP step against the CPU (a deep copy, {cpu_s:.2f} s there): loss/ap max rel err "
+        f"{max(errs.values()):.3g}, BN statistics max abs err {stats_err:.3g}, parameters after the update max abs "
+        f"diff {param_err:.3g} (AdamW's first update moves each by about lr = {schedule(0)}); launches {counts}")
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = step(state, clouds, pos, neg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, clouds, pos, neg)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / TRAIN_STEPS
+    last = {k: round(v.item(), 6) for k, v in metrics.items()}
+    if not all(torch.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"minkloc3dv2 SmoothAP step: non-finite metrics {last}")
+    measured(f"minkloc3dv2 SmoothAP step, {clouds.shape[0]} clouds x {N_POINTS} points (pair-expanded)",
+             f"{sec * 1e3:.2f} ms per step ({TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up; first step "
+             f"{first_ms:.2f} ms), {clouds.shape[0] / sec:.1f} clouds/s, peak memory "
+             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, step {state.step} metrics {last}")
+    return counts
+
+
+def phase_minkloc(torch, mods, records, dev):
+    """MinkLoc3Dv2 at full width through the port's entry points: serving,
+    the CPU comparison, the level occupancy, the dense backend, the
+    SmoothAP step and the CLIs, each launching none of the port's kernels.
+    Returns every run's launch counts."""
+    from patchaugnet_tpu_torch import configs
+    from patchaugnet_tpu_torch.models import get_model, minkloc_sparse as ms
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    t_phase = time.perf_counter()
+    cfg = configs.MINKLOC3DV2
+    model = seeded_init_(get_model("minkloc3dv2", cfg), torch.Generator().manual_seed(20))
+    if model.backend != "sparse" or model.level_capacity is not None or model.quantization_step != 0.01:
+        raise AssertionError("minkloc3dv2: the config must build the sparse backend at step 0.01, full capacity")
+    counts, clouds, descs = serve(torch, mods, records, dev, model, "minkloc3dv2", {}, seed=21)
+    paths = [counts]
+    check_minkloc_cpu(torch, model, clouds[:MINK_CPU_CLOUDS], descs[0][:MINK_CPU_CLOUDS])
+    occ = ms.measure_level_occupancy(clouds, num_levels=len(cfg["layers"]), quantization_step=cfg["quantization_step"])
+    measured(f"minkloc3dv2 level occupancy of the {clouds.shape[0]} served clouds (uniform in [0, 1]^3, "
+             f"{N_POINTS} points, table capacity {N_POINTS} at every level)",
+             "; ".join(f"level {i} mean {occ[:, i].mean():.1f} (min {occ[:, i].min()}, max {occ[:, i].max()})"
+                       for i in range(occ.shape[1])))
+    check_minkloc_dense(torch, model, clouds[:MINK_DENSE_CLOUDS], dev)
+    del model, descs
+    paths.append(minkloc_train(torch, mods, records, dev, cfg))
+    paths.extend(cli_family(torch, mods, records, "minkloc3dv2", os.path.join(ROOT, "configs/minkloc3dv2.yaml"), {}))
+    say(f"phase 8 (minkloc3dv2): {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main():
     global CARD
     import torch
@@ -1521,12 +1780,15 @@ def main():
     center_counts, step_counts, step_ms = phase_train(torch, mods, records, dev)
     cli_counts = phase_cli(torch, mods, records, step_ms)
     family_counts = phase_families(torch, ops, mods, records, dev)
+    minkloc_counts = phase_minkloc(torch, mods, records, dev)
 
     # each kernel's launches on its paths: K1-K3 serving, K6 emd_loss, K4
     # the row-chunked auction, K1 and K2 the train step and its centres,
     # the CLIs' epoch, eval and refresh, and PPT-Net's and PointNetVLAD's
-    # serving, train steps and CLIs (each run counts only its own kernels)
-    paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts, *cli_counts, *family_counts)
+    # serving, train steps and CLIs, and MinkLoc3Dv2's (none) (each run
+    # counts only its own kernels)
+    paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts, *cli_counts, *family_counts,
+             *minkloc_counts)
     launches = {name: sum(counts[name] for counts in paths) for name in serving_counts}
     # K5 (``topk_extract_pair``) is K3's function by K3's kernel, on no path
     # (the JAX package dispatches it nowhere): its line repeats K3's times

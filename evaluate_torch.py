@@ -9,18 +9,19 @@ runs by default. ``--weight`` is a checkpoint of ``train_torch.py``. It
 runs on the card; ``--platform cpu`` runs it on the CPU, and without a
 CUDA device and without that flag it exits with a message.
 
-It evaluates ``patch_aug_net``, ``pptnet``, ``pptnet_l2_norm`` and
-``pointnet_vlad``; a model without local descriptors (PointNetVLAD) takes
-the global forward where the descriptor store would take the local one.
-Not ported, each refused with the ROADMAP item that brings it:
-``minkloc3dv2`` (A10), reference ``.pth`` and JAX orbax weights (A12),
-``--devices`` above 1 (A11), ``--precision bfloat16`` (A3).
+It evaluates ``patch_aug_net``, ``pptnet``, ``pptnet_l2_norm``,
+``pointnet_vlad`` and ``minkloc3dv2``; a model without local descriptors
+(PointNetVLAD, MinkLoc3Dv2) takes the global forward where the
+descriptor store would take the local one. Not ported, each refused with
+the ROADMAP item that brings it: reference ``.pth`` and JAX orbax weights
+(A12), ``--devices`` above 1 (A11), ``--precision bfloat16`` (A3).
 
 Usage:
   python evaluate_torch.py --model_type patch_aug_net \
       --weight exp/patch_aug_net/saved_model/train_epoch_29_end --dataset oxford
   python evaluate_torch.py --model_type patch_aug_net --dataset synthetic   # random init smoke
   python evaluate_torch.py --model_type pointnet_vlad --dataset synthetic
+  python evaluate_torch.py --model_type minkloc3dv2 --dataset synthetic
 """
 import argparse
 import os
@@ -36,7 +37,6 @@ CONFIG_TABLE = {
     "pointnet_vlad": "configs/pointnet_vlad.yaml",
     "minkloc3dv2": "configs/minkloc3dv2.yaml",
 }
-UNPORTED_MODELS = {"minkloc3dv2": "A10"}
 
 
 def get_args(argv=None):
@@ -70,9 +70,6 @@ def get_args(argv=None):
 
 def refuse_unported(args):
     """Raise ``NotImplementedError`` for what the port does not have yet."""
-    if args.model_type in UNPORTED_MODELS:
-        raise NotImplementedError(
-            f"model_type {args.model_type!r} is not ported yet (ROADMAP {UNPORTED_MODELS[args.model_type]})")
     if args.devices > 1:
         raise NotImplementedError("--devices above 1: sharded eval is not ported yet (ROADMAP A11)")
     if args.precision != "float32":
@@ -86,7 +83,8 @@ def refuse_unported(args):
 def eval_forward(model, device, local: bool):
     """The eval's forward: the local one (global, local, centres) when the
     descriptor store wants locals and the model has them, else the global
-    one, as ``evaluate.py:166-170`` falls back for PointNetVLAD."""
+    one, as ``evaluate.py:166-170`` falls back for PointNetVLAD and
+    MinkLoc3Dv2."""
     from patchaugnet_tpu_torch import train
 
     forward = train.build_local_forward_fn(model, device) if local else None

@@ -7,8 +7,9 @@ that file: the model keys, the training keys (the tuple batch, margins,
 loss flags and weights, optimizer and schedule, the a2b table sizes) and
 the keys the CLIs read (the seed, the experiment directory, the eval
 tuple sizes, the dataset). ``TINY_SMOKE`` is ``configs/tiny_smoke.yaml``,
-the CPU smoke configuration. ``PPTNET_ORIGIN`` and ``POINTNET_VLAD`` hold
-every key of ``configs/pptnet_origin.yaml`` and ``configs/pointnet_vlad.yaml``.
+the CPU smoke configuration. ``PPTNET_ORIGIN``, ``POINTNET_VLAD`` and
+``MINKLOC3DV2`` hold every key of ``configs/pptnet_origin.yaml``,
+``configs/pointnet_vlad.yaml`` and ``configs/minkloc3dv2.yaml``.
 They are kept here so that the port needs neither PyYAML nor the JAX
 package's entry modules; a test holds each equal to its YAML file.
 """
@@ -144,9 +145,57 @@ POINTNET_VLAD = dict(
     EVAL_NEGATIVES_PER_QUERY=12,
 )
 
+MINKLOC3DV2 = dict(
+    MANUAL_SEED=123,
+    model_type="minkloc3dv2",
+    use_patch_recon=False,
+    use_patch_feature_contrast=False,
+    use_hard_negative_patch_mining=False,
+    weight_place_recognition=1.0,
+    weight_patch_recon=0.0,
+    weight_patch_feature_contrast=0.0,
+    NUM_POINTS=4096,
+    FEATURE_OUTPUT_DIM=256,
+    model="MinkLoc",
+    planes=[64, 128, 64, 32],
+    layers=[1, 1, 1, 1],
+    num_top_down=2,
+    conv0_kernel_size=5,
+    feature_size=256,
+    output_dim=256,
+    block="ECABasicBlock",
+    pooling="GeM",
+    coordinates="cartesian",
+    quantization_step=0.01,
+    normalize_embeddings=False,
+    EXP_DIR="exp",
+    TRAIN_BATCH_SIZE=2,
+    TRAIN_POSITIVES_PER_QUERY=2,
+    TRAIN_NEGATIVES_PER_QUERY=14,
+    BASE_LEARNING_RATE=0.001,
+    MOMENTUM=0.9,
+    OPTIMIZER="adam",
+    MAX_EPOCH=400,
+    LEARNING_RATE_DECAY="step",
+    WEIGHT_DECAY=0.0001,
+    MARGIN_1=0.5,
+    MARGIN_2=0.2,
+    LOSS_FUNCTION="truncatedsmoothap",
+    LOSS_LAZY=True,
+    TRIPLET_USE_BEST_POSITIVES=False,
+    LOSS_IGNORE_ZERO_BATCH=False,
+    positives_per_query=4,
+    tau1=0.01,
+    EVAL_BATCH_SIZE=1,
+    EVAL_POSITIVES_PER_QUERY=4,
+    EVAL_NEGATIVES_PER_QUERY=10,
+    dataset="oxford",
+)
+
 # the configuration files the port knows without PyYAML, by file name
 KNOWN_CONFIGS = {"patch_aug_net.yaml": PATCH_AUG_NET_TRAIN, "tiny_smoke.yaml": TINY_SMOKE,
-                 "pptnet_origin.yaml": PPTNET_ORIGIN, "pointnet_vlad.yaml": POINTNET_VLAD}
+                 "pptnet_origin.yaml": PPTNET_ORIGIN, "pointnet_vlad.yaml": POINTNET_VLAD,
+                 "minkloc3dv2.yaml": MINKLOC3DV2}
 
 
 def load_config(path: str) -> Dict[str, Any]:

@@ -1,6 +1,8 @@
 """Losses: the metric losses on global descriptors (``metric.py``), the
-patch feature contrast (``patch_contrast.py``) and the reconstruction
-losses (``recon.py``), with the reference's string dispatch."""
+patch feature contrast (``patch_contrast.py``), the reconstruction
+losses (``recon.py``), with the reference's string dispatch, and
+TruncatedSmoothAP (``extra.py``, the MinkLoc3Dv2 trainer's loss)."""
+from .extra import cosine_affinity, truncated_smooth_ap
 from .metric import (
     best_pos_distance,
     hphn_quadruplet_loss,
@@ -52,4 +54,6 @@ __all__ = [
     "patch_contrastive_loss",
     "contrastive_loss",
     "get_loss_func",
+    "cosine_affinity",
+    "truncated_smooth_ap",
 ]

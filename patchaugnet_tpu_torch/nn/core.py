@@ -112,7 +112,9 @@ def seeded_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     0.1. The fan-in is the input width of a ``Linear``, and of a raw
     parameter the fan its JAX initialiser takes where its module names one
     in ``init_fan`` (``{name: fan}``), else its second-to-last axis (its
-    only axis for a vector). The child modules that a module names in
+    only axis for a vector). A raw parameter that its module names in
+    ``init_value`` (``{name: value}``, GeM's ``p``) takes that constant,
+    as its JAX initialiser gives it. The child modules that a module names in
     ``zero_init`` (STN3D's ``fc3``) start at zero, weight and bias, as
     their JAX initialisers make them. BatchNorm scale and running variance
     are uniform in [0.5, 1.5] and its bias and running mean normal with
@@ -122,9 +124,12 @@ def seeded_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for module in model.modules():
         own = [*module.named_parameters(recurse=False), *module.named_buffers(recurse=False)]
         fans = getattr(module, "init_fan", {})
+        values = getattr(module, "init_value", {})
         for name, t in own:
             shape = tuple(t.shape)
-            if isinstance(module, BatchNorm) and name in ("weight", "running_var"):
+            if name in values:
+                value = torch.full(shape, values[name])
+            elif isinstance(module, BatchNorm) and name in ("weight", "running_var"):
                 value = torch.rand(shape, generator=generator) + 0.5
             elif name in ("bias", "running_mean"):
                 value = torch.randn(shape, generator=generator) * 0.1

@@ -1,7 +1,9 @@
 """Training: the train state, the optimizer and its schedule,
-checkpoints, the train step of PatchAugNet, and the epoch loops."""
+checkpoints, the train step of PatchAugNet, PPT-Net and PointNetVLAD,
+the TruncatedSmoothAP trainer of MinkLoc3Dv2, and the epoch loops."""
 from .state import (
     TrainState,
+    Tx,
     create_train_state,
     make_optimizer,
     make_schedule,
@@ -9,6 +11,14 @@ from .state import (
     save_checkpoint,
 )
 from .loop import HARD_NEG_EPOCH, METRIC_FETCH_LAG, evaluate, prepare_patch_inputs, train_one_epoch
+from .smoothap import (
+    build_masks,
+    build_smoothap_train_step,
+    multistep_schedule,
+    sample_smoothap_batch,
+    smoothap_optimizer,
+    train_one_epoch_smoothap,
+)
 from .step import (
     build_center_fn,
     build_forward_fn,
@@ -20,6 +30,7 @@ from .step import (
 
 __all__ = [
     "TrainState",
+    "Tx",
     "create_train_state",
     "make_optimizer",
     "make_schedule",
@@ -36,4 +47,10 @@ __all__ = [
     "evaluate",
     "HARD_NEG_EPOCH",
     "METRIC_FETCH_LAG",
+    "sample_smoothap_batch",
+    "build_masks",
+    "smoothap_optimizer",
+    "build_smoothap_train_step",
+    "train_one_epoch_smoothap",
+    "multistep_schedule",
 ]

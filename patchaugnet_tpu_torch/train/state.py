@@ -8,6 +8,9 @@ reference train script's pieces:
   - the learning-rate schedule (:133-139): StepLR (x0.2 every 10 epochs)
     counted in steps, and the reference's CosineAnnealingLR, which it
     builds with ``eta_min`` equal to the base rate, so constant;
+  - an override of both (``create_train_state(tx=)``, as the JAX one
+    takes an optax ``tx``): the SmoothAP trainer's AdamW and MultiStepLR
+    (``train/smoothap.py``);
   - checkpoints (:172-189, 518-526): one ``torch.save`` payload named
     ``train_epoch_{E}_end`` with the model state, the optimizer state,
     the step, the epoch and the iteration.
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -29,6 +32,15 @@ from torch import nn
 from ..serving import resolve_device
 
 Schedule = Callable[[int], float]
+
+
+class Tx(NamedTuple):
+    """An optimizer and its schedule, given to :func:`create_train_state` in
+    place of the config's (the port's optax transformation): ``make(params,
+    lr)`` builds the optimizer at the schedule's first rate."""
+
+    make: Callable[[Iterable[nn.Parameter], float], torch.optim.Optimizer]
+    schedule: Schedule
 
 
 @dataclass
@@ -103,21 +115,26 @@ def create_train_state(
     cfg: Dict[str, Any],
     steps_per_epoch: int = 1000,
     device: Union[str, torch.device] = "cuda",
+    tx: Optional[Tx] = None,
 ) -> TrainState:
     """Move ``model`` (already filled: ``nn.seeded_init_`` or
     ``compat.load_jax_variables``) to ``device`` and give it the
-    config's optimizer and schedule. Runs on the card unless the caller
-    asks for the CPU."""
+    config's optimizer and schedule, or ``tx``'s. Runs on the card unless
+    the caller asks for the CPU."""
     model.to(resolve_device(device))
-    schedule = make_schedule(
-        cfg.get("LEARNING_RATE_DECAY", "step"),
-        cfg["BASE_LEARNING_RATE"],
-        steps_per_epoch,
-        cfg.get("MAX_EPOCH", 30),
-    )
-    optimizer = make_optimizer(
-        cfg.get("OPTIMIZER", "adam"), model.parameters(), schedule(0), cfg.get("MOMENTUM", 0.9)
-    )
+    if tx is None:
+        schedule = make_schedule(
+            cfg.get("LEARNING_RATE_DECAY", "step"),
+            cfg["BASE_LEARNING_RATE"],
+            steps_per_epoch,
+            cfg.get("MAX_EPOCH", 30),
+        )
+        optimizer = make_optimizer(
+            cfg.get("OPTIMIZER", "adam"), model.parameters(), schedule(0), cfg.get("MOMENTUM", 0.9)
+        )
+    else:
+        schedule = tx.schedule
+        optimizer = tx.make(model.parameters(), schedule(0))
     return TrainState(model=model, optimizer=optimizer, schedule=schedule)
 
 

@@ -8,17 +8,20 @@ its auction EMD, goes on the card.
     python3 profile_torch.py --train [--model M] [--iters 5] [--table PATH] [--root DIR]
 
 ``--model`` is ``patch_aug_net`` (the default), ``pptnet``,
-``pptnet_l2_norm`` or ``pointnet_vlad``, each at the full width of its
-config (``configs.PATCH_AUG_NET``, ``PPTNET_ORIGIN``, ``POINTNET_VLAD``).
-Serves the model (seeded random weights) through
-``serving.build_forward_fn`` and reports, per forward:
+``pptnet_l2_norm``, ``pointnet_vlad`` or ``minkloc3dv2``, each at the
+full width of its config (``configs.PATCH_AUG_NET``, ``PPTNET_ORIGIN``,
+``POINTNET_VLAD``, ``MINKLOC3DV2``). Serves the model (seeded random
+weights) through ``serving.build_forward_fn`` and reports, per forward:
 
 - each stage (PatchAugNet's ``sa0..sa2``, ``fp2..fp0``, ``aggregation``;
   PPT-Net's ``sa0..sa3``, ``fp3..fp0``, ``aggregation``; PointNetVLAD's
-  ``point_net`` with its two STNs inside it, and ``net_vlad``) in device
-  time, bracketed by CUDA events from forward hooks;
+  ``point_net`` with its two STNs inside it, and ``net_vlad``;
+  MinkLoc3Dv2's ``pyramid``, the tables and kernel maps, then in its
+  ``backbone`` ``conv0``, each level's ``down{i}`` and ``block{i}_0``,
+  the rest of the backbone being the top-down steps, and ``pooling``) in
+  device time, bracketed by CUDA events from forward hooks;
 - the host wall time, descriptors/s and the peak device memory, and the
-  device's busy share over the same window;
+  device's busy share and kernels per forward over the same window;
 - the top operators and kernels by self device time from
   ``torch.profiler`` (``--table`` writes the full table to a file).
 
@@ -62,8 +65,10 @@ the top device kernels.
 With ``--train`` it runs the model's train step instead (PatchAugNet's
 ``configs.PATCH_AUG_NET_TRAIN`` with ``chip_smoke.py``'s batch of 72 clouds
 of 4096 points and its correspondence tables; PPT-Net's tuple batch of 18
-and PointNetVLAD's of 44 clouds, without tables): the host wall per step
-of ``train.build_train_step``, clouds/s and peak memory; the device ms of
+and PointNetVLAD's of 44 clouds, without tables; MinkLoc3Dv2's SmoothAP
+step on ``chip_smoke.py``'s pair-expanded batch of 16): the host wall per
+step of ``train.build_train_step`` (``train.build_smoothap_train_step``),
+clouds/s and peak memory; the device ms of
 the same step's parts from CUDA events that hooks record: the forward and
 each of its stages and the patch decoder (module hooks), the losses (from
 the forward's end to the first gradient that reaches one of the model's
@@ -100,6 +105,12 @@ MODELS = {
                       ("point_net", "point_net.stn", "point_net.feature_trans", "net_vlad")),
 }
 MODELS["pptnet_l2_norm"] = MODELS["pptnet"]
+# MinkLoc3Dv2: the pyramid build (a method: sorts and searchsorted), then
+# conv0, each level's down conv and block, the top-down steps (the
+# backbone's rest), the pooling
+MODELS["minkloc3dv2"] = ("MINKLOC3DV2", "MINKLOC3DV2", (
+    "pyramid", "backbone", "backbone.conv0", "backbone.down0", "backbone.block0_0", "backbone.down1",
+    "backbone.block1_0", "backbone.down2", "backbone.block2_0", "backbone.down3", "backbone.block3_0", "pooling"))
 EMD_B, EMD_N, EMD_EPS, EMD_ITERS = 4, 4096, 0.02, 1024  # losses/pointnetvlad_loss.py:205-221
 
 
@@ -390,6 +401,41 @@ def profile_emd(torch, card, dev, table):
 
 
 
+def hook_stages(model, stages, open_, close):
+    """CUDA events around each stage of ``model``'s forward: forward hooks
+    on each named submodule, and for ``pyramid`` a wrapper of MinkLoc's
+    ``pyramid`` method. Returns handles with ``remove()``."""
+    handles = []
+    for name in stages:
+        if name == "pyramid":
+            inner = model.pyramid
+
+            def timed(points, inner=inner):
+                open_("pyramid")
+                out = inner(points)
+                close("pyramid")
+                return out
+
+            model.pyramid = timed
+            handles.append(type("Unwrap", (), {"remove": staticmethod(lambda: delattr(model, "pyramid"))}))
+            continue
+        sub = model.get_submodule(name)
+        handles.append(sub.register_forward_pre_hook(lambda m, a, name=name: open_(name)))
+        handles.append(sub.register_forward_hook(lambda m, a, o, name=name: close(name)))
+    return handles
+
+
+def print_stages(card, stage_ms, what):
+    """Each stage's device ms; a dotted stage is inside the one before its
+    dot, and the rest of that one prints as ``<parent> rest``."""
+    total = sum(ms for name, ms in stage_ms.items() if "." not in name)
+    for name, ms in stage_ms.items():
+        print(f"[{card}] {what} {name}: {ms:.3f} ms ({ms / total:.1%} of {total:.3f} ms in stages)", flush=True)
+    for parent in [n for n in stage_ms if "." not in n and any(k.startswith(n + ".") for k in stage_ms)]:
+        rest = stage_ms[parent] - sum(ms for k, ms in stage_ms.items() if k.startswith(parent + "."))
+        print(f"[{card}] {what} {parent} rest: {rest:.3f} ms", flush=True)
+
+
 def profile_train(torch, card, dev, iters, table, model_type="patch_aug_net"):
     """The train step at full width: wall per step, its parts' device ms
     from CUDA events, and the profiler's busy share and top kernels."""
@@ -402,16 +448,25 @@ def profile_train(torch, card, dev, iters, table, model_type="patch_aug_net"):
     cfg = dict(getattr(configs, cfg_name), model_type=model_type)
     stages = stages + (("decoder",) if model_type == "patch_aug_net" else ())
     model = seeded_init_(get_model(model_type, cfg), torch.Generator().manual_seed(5))
-    state = train.create_train_state(model, cfg, device=dev)
-    clouds, mask, corr = smoke.train_batch(torch, cfg, dev, seed=6)
-    step = train.build_train_step(model, cfg)
+    if model_type == "minkloc3dv2":         # the SmoothAP trainer on chip_smoke.py's pair-expanded batch
+        schedule = train.multistep_schedule(cfg["BASE_LEARNING_RATE"], [250, 350], 1000)
+        smoothap, tx = train.build_smoothap_train_step(model, schedule, weight_decay=cfg["WEIGHT_DECAY"],
+                                                       tau1=cfg["tau1"], positives_per_query=cfg["positives_per_query"])
+        state = train.create_train_state(model, cfg, device=dev, tx=tx)
+        clouds, pos, neg = smoke.smoothap_batch(torch, dev, seed=6)
+        step = lambda state: smoothap(state, clouds, pos, neg)
+    else:
+        state = train.create_train_state(model, cfg, device=dev)
+        clouds, mask, corr = smoke.train_batch(torch, cfg, dev, seed=6)
+        tuple_step = train.build_train_step(model, cfg)
+        step = lambda state: tuple_step(state, clouds, corr, mask)
     for _ in range(2):
-        state, _ = step(state, clouds, corr, mask)
+        state, _ = step(state)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     for _ in range(iters):
-        state, metrics = step(state, clouds, corr, mask)
+        state, metrics = step(state)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -455,12 +510,9 @@ def profile_train(torch, card, dev, iters, table, model_type="patch_aug_net"):
                model.register_forward_hook(outputs_hook),
                state.optimizer.register_step_pre_hook(lambda opt, a, k: close("backward", then="optimizer")),
                state.optimizer.register_step_post_hook(lambda opt, a, k: close("optimizer"))]
-    for name in stages:
-        sub = model.get_submodule(name)
-        handles.append(sub.register_forward_pre_hook(lambda m, a, name=name: open_(name)))
-        handles.append(sub.register_forward_hook(lambda m, a, o, name=name: close(name)))
+    handles += hook_stages(model, stages, open_, close)
     for _ in range(iters):
-        state, _ = step(state, clouds, corr, mask)
+        state, _ = step(state)
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
@@ -469,13 +521,12 @@ def profile_train(torch, card, dev, iters, table, model_type="patch_aug_net"):
     for name in ("forward", "loss", "backward", "optimizer"):
         print(f"[{card}] train {name}: {part[name]:.3f} ms ({part[name] / whole:.1%} of {whole:.3f} ms)",
               flush=True)
-    for name in stages:
-        print(f"[{card}]   forward stage {name}: {part[name]:.3f} ms", flush=True)
+    print_stages(card, {name: part[name] for name in stages}, "  forward stage")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            state, metrics = step(state, clouds, corr, mask)
+            state, metrics = step(state)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     key, rows, kernels = device_kernels(prof)
@@ -551,37 +602,28 @@ def main():
     print(f"[{card}] {args.model} B={args.batch}: {wall_ms:.3f} ms per forward (host wall), "
           f"{args.batch / wall_ms * 1e3:.1f} descriptors/s, peak memory {peak:.3f} GiB", flush=True)
 
-    # stage times: CUDA events around each top-level submodule
+    # stage times: CUDA events around each stage
     marks = {name: [] for name in stages}
 
-    def pre(name):
-        def hook(module, inputs):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks[name].append([ev, None])
-        return hook
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
 
-    def post(name):
-        def hook(module, inputs, output):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks[name][-1][1] = ev
-        return hook
+    def open_(name):
+        marks[name].append([event(), None])
 
-    handles = []
-    for name in stages:
-        sub = model.get_submodule(name)
-        handles += [sub.register_forward_pre_hook(pre(name)), sub.register_forward_hook(post(name))]
+    def close(name):
+        marks[name][-1][1] = event()
+
+    handles = hook_stages(model, stages, open_, close)
     for _ in range(args.iters):
         forward(clouds)
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
-    stage_ms = {name: sum(a.elapsed_time(b) for a, b in marks[name]) / args.iters for name in stages}
-    total = sum(ms for name, ms in stage_ms.items() if "." not in name)
-    for name in stages:
-        print(f"[{card}] stage {name}: {stage_ms[name]:.3f} ms ({stage_ms[name] / total:.1%} of "
-              f"{total:.3f} ms in stages)", flush=True)
+    print_stages(card, {name: sum(a.elapsed_time(b) for a, b in marks[name]) / args.iters for name in stages},
+                 "stage")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -595,7 +637,8 @@ def main():
     timed = [r for r in rows if getattr(r, key) > 0]        # operators and kernels
     device_ms = sum(getattr(r, key) for r in kernels) / 1e3
     print(f"[{card}] profiler: device busy {device_ms / args.iters:.3f} ms per forward over a "
-          f"{window_ms / args.iters:.3f} ms window ({1 - device_ms / window_ms:.1%} idle)", flush=True)
+          f"{window_ms / args.iters:.3f} ms window ({1 - device_ms / window_ms:.1%} idle), "
+          f"{sum(r.count for r in kernels) / args.iters:.0f} kernels per forward", flush=True)
     for r in sorted(timed, key=lambda r: -getattr(r, key))[:15]:
         print(f"[{card}]   {getattr(r, key) / 1e3 / args.iters:8.3f} ms  x{r.count // args.iters:<4d} "
               f"{r.key[:90]}", flush=True)

@@ -32,7 +32,8 @@ from patchaugnet_tpu.models import PatchAugNet as JaxPatchAugNet
 
 from patchaugnet_tpu_torch import configs, data, serving, train
 from patchaugnet_tpu_torch.compat import load_jax_variables
-from patchaugnet_tpu_torch.models import PatchAugNet
+from patchaugnet_tpu_torch.models import PatchAugNet, get_model
+from patchaugnet_tpu_torch.nn import training_init_
 
 import evaluate_torch
 import train_torch
@@ -177,7 +178,7 @@ def test_train_cli_needs_cuda_or_platform_cpu(tmp_path):
     (["--devices", "2"], "A11"),
     (["--precision", "bfloat16"], "A3"),
     (["--print-flops"], "A12"),
-    (["--config", os.path.join(REPO, "configs", "minkloc3dv2.yaml")], "A10"),
+    (["--config", os.path.join(REPO, "configs", "minkloc3dv2.yaml"), "--precision", "bfloat16"], "A3"),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flags, item):
     argv = ["--config", os.path.join(REPO, "configs", "tiny_smoke.yaml"), "--dataset", "synthetic", "--platform", "cpu",
@@ -188,7 +189,7 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, flags, item):
 
 def test_evaluate_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--dataset", "synthetic", "--platform", "cpu", "--exp_dir", str(tmp_path)]
-    for flags, item in ((["--model_type", "minkloc3dv2"], "A10"),
+    for flags, item in ((["--model_type", "minkloc3dv2", "--precision", "bfloat16"], "A3"),
                         (["--weight", "model.pth"], "A12"), (["--weight", str(tmp_path)], "A12"),
                         (["--devices", "2"], "A11")):
         with pytest.raises(NotImplementedError, match=item):
@@ -203,8 +204,9 @@ def test_config_without_yaml(monkeypatch):
     assert cfg == configs.TINY_SMOKE and cfg is not configs.TINY_SMOKE
     assert configs.load_config(os.path.join(REPO, "configs", "pptnet_origin.yaml")) == configs.PPTNET_ORIGIN
     assert configs.load_config(os.path.join(REPO, "configs", "pointnet_vlad.yaml")) == configs.POINTNET_VLAD
+    assert configs.load_config(os.path.join(REPO, "configs", "minkloc3dv2.yaml")) == configs.MINKLOC3DV2
     with pytest.raises(ImportError, match="tiny_smoke.yaml"):
-        configs.load_config(os.path.join(REPO, "configs", "minkloc3dv2.yaml"))
+        configs.load_config(os.path.join(REPO, "configs", "unknown.yaml"))
 
 
 # tiny configurations of the two other dense families, on the synthetic
@@ -248,3 +250,49 @@ def test_cli_trains_and_evaluates_each_family(tmp_path, monkeypatch, family):
     clouds = out["test_ds"].scene.get_clouds([0, 1])[0]
     got = evaluate_torch.eval_forward(run["state"].model, CPU, local=True)(clouds)
     assert isinstance(got, tuple) == (family == "pptnet")
+
+
+# a tiny MinkLoc3Dv2 on the synthetic scene's 128-point clouds (its
+# config's SmoothAP trainer, a batch of 8 clouds)
+_TINY_MINKLOC = dict(configs.MINKLOC3DV2, NUM_POINTS=128, planes=[16, 32, 16, 8], feature_size=32, output_dim=32,
+                     quantization_step=0.05, SMOOTHAP_BATCH_SIZE=8)
+
+
+@pytest.mark.parametrize("cli", ["train", "evaluate"])
+def test_cli_minkloc3dv2(tmp_path, monkeypatch, cli):
+    """``train``: train_torch.py on the minkloc3dv2 config for an epoch of
+    two SmoothAP batches (AdamW, the per-epoch checkpoint and eval);
+    ``evaluate``: evaluate_torch.py on a checkpoint of that trainer's
+    state, its eval taking the global forward (MinkLoc has no local one),
+    its descriptors those of the model's own forward. In this process,
+    TensorBoard blocked."""
+    import yaml
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    path, exp = str(tmp_path / "minkloc3dv2.yaml"), str(tmp_path / "exp")
+    with open(path, "w") as f:
+        yaml.safe_dump(_TINY_MINKLOC, f)
+    saved = os.path.join(exp, "minkloc3dv2", "saved_model")
+    if cli == "train":
+        run = train_torch.main(["--config", path, "--dataset", "synthetic", "--platform", CPU, "--epochs", "1",
+                                "--max-batches", "2", "--exp_dir", exp])
+        state, summary = run["state"], run["summaries"][0]
+        assert state.step == 2 and isinstance(state.optimizer, torch.optim.AdamW)
+        assert state.optimizer.param_groups[0]["weight_decay"] == _TINY_MINKLOC["WEIGHT_DECAY"]
+        assert set(summary) == {"loss", "ap"} and 0 <= summary["loss"] <= 1
+        assert abs(summary["loss"] + summary["ap"] - 1) < 1e-6
+        assert torch.load(os.path.join(saved, "train_epoch_0_end"))["step"] == 2
+        assert run["test_ds"].scene.global_descs.shape == (len(run["test_ds"]), 32)   # the epoch's eval ran
+        return
+    model = training_init_(get_model("minkloc3dv2", _TINY_MINKLOC), torch.Generator().manual_seed(4))
+    _, tx = train.build_smoothap_train_step(model, train.multistep_schedule(1e-3, [250], 1), weight_decay=1e-4)
+    train.save_checkpoint(tmp_path, train.create_train_state(model, _TINY_MINKLOC, device=CPU, tx=tx), 0)
+    out = evaluate_torch.main(["--model_type", "minkloc3dv2", "--config", path, "--weight",
+                               str(tmp_path / "train_epoch_0_end"), "--dataset", "synthetic", "--platform", CPU,
+                               "--exp_dir", exp, "--no_save_top_k"])
+    assert out["num_pairs"] == 2 and 0 <= out["recall_at_1"] <= 100
+    test_ds = out["test_ds"]
+    clouds = test_ds.scene.get_clouds([0, 1])[0]
+    got = evaluate_torch.eval_forward(model, CPU, local=True)(clouds)
+    assert isinstance(got, torch.Tensor) and got.shape == (2, 32)
+    np.testing.assert_allclose(test_ds.scene.global_descs[:2], got.numpy(), atol=1e-5)

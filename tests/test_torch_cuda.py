@@ -583,3 +583,40 @@ def test_public_topk_wrappers_past_one_list(device, rng):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (topk_ops.launches, topk_ops.price_launches, topk_ops.chunked_launches) == (
         before[0] + 1, before[1] + 2, before[2] + 1)
+
+
+def _pyramid_tensors(pyramid):
+    out = [t for table in pyramid.tables for t in table]
+    out += [pyramid.conv0_routes, pyramid.overflow, *pyramid.block_routes, *pyramid.down_routes]
+    return out + [t for pair in pyramid.up_nbr for t in pair]
+
+
+@pytest.mark.parametrize("capacity", [None, "half"], ids=["full", "overflowing"])
+def test_minkloc_on_card_matches_cpu(device, rng, capacity):
+    """MinkLoc3Dv2 at full width (step 0.01) on the card against the CPU:
+    coords, every table, route and up map equal; descriptors within 1e-5;
+    at full capacity and at capacities of half the occupancy (the highest
+    keys drop). No kernel of the port runs on this path."""
+    from patchaugnet_tpu_torch import configs, serving
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.models import minkloc_sparse as ms
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    clouds = torch.from_numpy(rng.rand(3, 4096, 3).astype(np.float32) * 2 - 1)
+    cfg = dict(configs.MINKLOC3DV2)
+    if capacity:
+        counts = ms.measure_level_occupancy(clouds.numpy(), num_levels=4)
+        cfg["level_capacity"] = [int(c) // 2 for c in counts.max(axis=0)]
+    model = seeded_init_(get_model("minkloc3dv2", cfg), torch.Generator().manual_seed(0)).eval()
+    with torch.inference_mode():
+        want = model(clouds)
+        cpu = model.pyramid(clouds)
+        coords = model.quantize(clouds)[:2]
+        got = serving.build_forward_fn(model, device=device)(clouds)
+        card = model.pyramid(clouds.to(device))
+        for a, b in zip(model.quantize(clouds.to(device))[:2], coords):
+            assert torch.equal(a.cpu(), b)
+    assert card.dims == cpu.dims and (int(card.overflow) > 0) == bool(capacity)
+    for a, b in zip(_pyramid_tensors(card), _pyramid_tensors(cpu)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)

@@ -126,8 +126,8 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    with pytest.raises(ValueError, match="not ported yet .ROADMAP A10"):
-        get_model("minkloc3dv2", TINY)
+    with pytest.raises(NotImplementedError, match="COMPUTE_DTYPE.*ROADMAP A3"):
+        get_model("minkloc3dv2", dict(configs.MINKLOC3DV2, COMPUTE_DTYPE="bfloat16"))
     with pytest.raises(ValueError, match="unknown model_type"):
         get_model("pointnet", TINY)
     for key, value in (("COMPUTE_DTYPE", "bfloat16"), ("KNN_APPROX_RECALL", 0.95)):
@@ -177,13 +177,14 @@ def test_config_copy_matches_yaml():
     assert configs.PATCH_AUG_NET_TRAIN == cfg
     with open(os.path.join(REPO, "configs", "tiny_smoke.yaml")) as f:
         assert configs.TINY_SMOKE == yaml.safe_load(f)
-    # PPT-Net and PointNetVLAD: every key of their files
-    for name, copy_ in (("pptnet_origin.yaml", configs.PPTNET_ORIGIN), ("pointnet_vlad.yaml", configs.POINTNET_VLAD)):
+    # PPT-Net, PointNetVLAD and MinkLoc3Dv2: every key of their files
+    for name, copy_ in (("pptnet_origin.yaml", configs.PPTNET_ORIGIN), ("pointnet_vlad.yaml", configs.POINTNET_VLAD),
+                        ("minkloc3dv2.yaml", configs.MINKLOC3DV2)):
         with open(os.path.join(REPO, "configs", name)) as f:
             assert copy_ == yaml.safe_load(f), name
         assert configs.KNOWN_CONFIGS[name] is copy_
     assert set(configs.KNOWN_CONFIGS) == {"patch_aug_net.yaml", "tiny_smoke.yaml", "pptnet_origin.yaml",
-                                          "pointnet_vlad.yaml"}
+                                          "pointnet_vlad.yaml", "minkloc3dv2.yaml"}
 
 
 _IMPORT_EVERY_MODULE = """

@@ -9,14 +9,20 @@ the card; ``--platform cpu`` runs it on the CPU, and without a CUDA device
 and without that flag it exits with a message.
 
 It trains ``patch_aug_net``, ``pptnet``, ``pptnet_l2_norm`` and
-``pointnet_vlad``. Not ported, each refused with the ROADMAP item that
-brings it: ``minkloc3dv2`` (A10), ``--devices`` above 1 (A11),
-``--precision bfloat16`` (A3), ``--print-flops`` (A12) and
-``LOSS_FUNCTION: truncatedsmoothap`` (A9).
+``pointnet_vlad`` on tuple batches, and with ``LOSS_FUNCTION:
+truncatedsmoothap`` (``minkloc3dv2``'s config) runs the SmoothAP trainer
+of ``train.py:159-260``: flat pair-expanded batches of
+``SMOOTHAP_BATCH_SIZE`` (16) clouds, AdamW at ``WEIGHT_DECAY`` under
+MultiStepLR (``scheduler_milestones``, default 250 and 350), a
+checkpoint per epoch and an eval every ``EVAL_EVERY_N_EPOCHS`` (1).
+Not ported, each refused with the ROADMAP item that brings it:
+``--devices`` above 1 (A11), ``--precision bfloat16`` (A3) and
+``--print-flops`` (A12).
 
 Usage:
   python train_torch.py --config configs/patch_aug_net.yaml --dataset oxford
   python train_torch.py --config configs/pptnet_origin.yaml --dataset synthetic --max-batches 5 --epochs 1
+  python train_torch.py --config configs/minkloc3dv2.yaml --dataset synthetic --max-batches 5 --epochs 1
   python train_torch.py --config configs/patch_aug_net.yaml --dataset synthetic \
       --max-batches 5 --epochs 1        # no data on disk needed
   python train_torch.py --config configs/tiny_smoke.yaml --dataset synthetic \
@@ -29,9 +35,6 @@ import sys
 from datetime import datetime
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-
-# model types of the JAX package that the port does not have yet, by ROADMAP item
-UNPORTED_MODELS = {"minkloc3dv2": "A10"}
 
 
 def get_args(argv=None):
@@ -89,20 +92,14 @@ def build_cfg(args):
     return cfg
 
 
-def refuse_unported(cfg, args):
+def refuse_unported(args):
     """Raise ``NotImplementedError`` for what the port does not have yet."""
-    if cfg["model_type"] in UNPORTED_MODELS:
-        raise NotImplementedError(f"model_type {cfg['model_type']!r} is not ported yet "
-                                  f"(ROADMAP {UNPORTED_MODELS[cfg['model_type']]})")
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError("--devices above 1: data-parallel training is not ported yet (ROADMAP A11)")
     if args.precision == "bfloat16":
         raise NotImplementedError("--precision bfloat16 is not ported yet (ROADMAP A3, COMPUTE_DTYPE)")
     if args.print_flops:
         raise NotImplementedError("--print-flops is not ported yet (ROADMAP A12, utils)")
-    if cfg.get("LOSS_FUNCTION", "").lower() == "truncatedsmoothap":
-        raise NotImplementedError("LOSS_FUNCTION truncatedsmoothap is not ported yet (ROADMAP A9, "
-                                  "train/smoothap.py)")
 
 
 def main(argv=None):
@@ -114,7 +111,7 @@ def main(argv=None):
 
     device = platform_device(args.platform)
     cfg = build_cfg(args)
-    refuse_unported(cfg, args)
+    refuse_unported(args)
 
     import numpy as np
     import torch
@@ -166,7 +163,17 @@ def main(argv=None):
 
     model = training_init_(get_model(cfg["model_type"], cfg), torch.Generator().manual_seed(seed))
     steps_per_epoch = max(len(train_ds) // cfg["TRAIN_BATCH_SIZE"], 1)
-    state = train.create_train_state(model, cfg, steps_per_epoch=steps_per_epoch, device=device)
+    use_smoothap = cfg.get("LOSS_FUNCTION", "").lower() == "truncatedsmoothap"
+    smoothap_step = tx = None
+    if use_smoothap:
+        # the MinkLoc3Dv2 pipeline: AdamW and MultiStepLR built up front
+        # (config_baseline.txt lr, weight_decay, scheduler_milestones)
+        schedule = train.multistep_schedule(cfg["BASE_LEARNING_RATE"], cfg.get("scheduler_milestones", [250, 350]),
+                                            steps_per_epoch)
+        smoothap_step, tx = train.build_smoothap_train_step(
+            model, schedule, weight_decay=cfg.get("WEIGHT_DECAY"), tau1=cfg.get("tau1", 0.01),
+            positives_per_query=cfg.get("positives_per_query", 4))
+    state = train.create_train_state(model, cfg, steps_per_epoch=steps_per_epoch, device=device, tx=tx)
     logger.info(f"Parameters: {sum(p.numel() for p in state.model.parameters()):,}")
 
     starting_epoch = 0
@@ -177,7 +184,7 @@ def main(argv=None):
         state, starting_epoch = train.restore_checkpoint(path, state)
         logger.info(f"Resumed from {path} at epoch {starting_epoch}")
 
-    step = train.build_train_step(state.model, cfg)
+    step = None if use_smoothap else train.build_train_step(state.model, cfg)
     forward = train.build_forward_fn(state.model, device)
     center_fn = train.build_center_fn(cfg["SAMPLING"][0], device) if use_patches else None
     run = {"cfg": cfg, "state": state, "train_ds": train_ds, "test_ds": test_ds, "forward": forward,
@@ -186,6 +193,24 @@ def main(argv=None):
     if cfg["eval"]:
         run["result"] = train.evaluate(forward, test_ds, logger=logger, writer=writer, epoch=starting_epoch)
         writer.close()
+        return run
+
+    if use_smoothap:
+        # flat batches and (B, B) masks, a checkpoint and (by default) an
+        # eval every epoch, as train.py's SmoothAP path
+        eval_every = cfg.get("EVAL_EVERY_N_EPOCHS", 1)
+        for epoch in range(starting_epoch, cfg["MAX_EPOCH"]):
+            logger.info(f"**** EPOCH {epoch:03d} (SmoothAP) ****")
+            state, summary = train.train_one_epoch_smoothap(
+                state, smoothap_step, train_ds.scene, batch_size=cfg.get("SMOOTHAP_BATCH_SIZE", 16),
+                batches_per_epoch=args.max_batches or steps_per_epoch, rng=rng, logger=logger)
+            writer.add_scalars("epoch_loss", {f"train_{k}": v for k, v in summary.items()}, epoch + 1)
+            train.save_checkpoint(cfg["save_path"], state, epoch)
+            run["summaries"].append(summary)
+            if (epoch + 1) % eval_every == 0 and len(test_ds) > 0:
+                train.evaluate(forward, test_ds, logger=logger, writer=writer, epoch=epoch)
+        writer.close()
+        run["state"] = state
         return run
 
     total_iterations = 0
