@@ -116,7 +116,23 @@ Phases, each fatal on failure:
    1e-5), then 10 timed steps after 3 warm-up steps; ``train_torch.py``
    for two SmoothAP batches and ``evaluate_torch.py`` on its checkpoint,
    recall checked against the CPU retrieval's as in phase 6;
-9. report: one ``{"kernels": [...]}`` line, the card's name and power
+9. deployment: a full-width reference-layout ``.pth`` of
+   ``configs.PATCH_AUG_NET`` (seeded) through ``export_serving_torch.py``'s
+   ``main`` at B=32 and B=100, global and local (``torch.export``, K1 and
+   K2 as the registered ``pan.fps`` / ``pan.knn``; the export launches
+   nothing); the B=32 artifacts loaded in a fresh process that serves 4
+   requests of 32 clouds, each call of each artifact launching K1 3 and K2
+   6 times and nothing else, with TF32 off and the port's models never
+   imported; its descriptors, local features and centre indices equal to
+   the live model fed the same ``.pth`` (floats within 1e-6, indices
+   exactly); descriptors/s of the live forward and the artifact at B=32
+   and B=100 in turns, with the host's time to queue one call; each
+   artifact's size, export and cold-load seconds (the fresh process starts
+   once the B=32 artifacts exist and serves while this one goes on);
+   then PPT-Net's (4 K1 and 8 K2 per call), PointNetVLAD's and
+   MinkLoc3Dv2's (no launch) global artifacts at B=32, each held against
+   its live forward;
+10. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -173,6 +189,9 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 CLI_CONFIG = "configs/patch_aug_net.yaml"     # the CLIs' flagship run on the synthetic scene
 F32_UNIT = 2.0 ** -24                         # unit roundoff of f32 (the mining check's bound)
 EVAL_REPEATS = 10                             # timed eval sweeps of the test split after the CLI's eval
+DEPLOY_BATCHES = (32, 100)                    # the batch sizes exported in phase 9
+DEPLOY_TOL = 1e-6                             # float outputs of an artifact against the live forward
+ENQUEUE_REPS = 5                              # calls queued behind a sleep kernel per host-cost reading
 
 
 def say(*parts):
@@ -1754,6 +1773,224 @@ def phase_minkloc(torch, mods, records, dev):
     return paths
 
 
+# the fresh serving process of phase 9: loads the PatchAugNet artifacts
+# (argv: the checkout, the directory they lie in, their batch size), serves the requests
+# saved there, and prints one JSON line: per request the launch counts of
+# each artifact's call, the load and first-call seconds, the TF32 flags,
+# and whether the port's models were imported; the outputs go to served.pt
+SERVE_SCRIPT = r"""
+import importlib, json, os, sys, time
+root, out, batch = sys.argv[1:4]
+sys.path.insert(0, root)
+import torch
+t0 = time.perf_counter()
+from patchaugnet_tpu_torch import serving
+fps, knn, topk = (importlib.import_module(f"patchaugnet_tpu_torch.ops.{name}") for name in ("fps", "knn", "topk"))
+fwd, meta = serving.load_artifact(os.path.join(out, f"patch_aug_net_desc_b{batch}.pt2"))
+t1 = time.perf_counter()
+lfwd, lmeta = serving.load_artifact(os.path.join(out, f"patch_aug_net_local_b{batch}.pt2"))
+t2 = time.perf_counter()
+requests = torch.load(os.path.join(out, "requests.pt")).cuda()
+counters = ((fps, "launches"), (knn, "launches"), (topk, "launches"), (topk, "price_launches"),
+            (topk, "chunked_launches"))
+def counts():
+    return {f"{m.__name__.rsplit('.', 1)[1]}.{c}": getattr(m, c) for m, c in counters}
+def reset():
+    for m, c in counters:
+        setattr(m, c, 0)
+served, calls, first = [], [], None
+for x in requests:
+    reset()
+    t = time.perf_counter()
+    g = fwd(x)
+    torch.cuda.synchronize()
+    first = first if first is not None else time.perf_counter() - t
+    one = counts()
+    reset()
+    lg, loc, ci = lfwd(x)
+    torch.cuda.synchronize()
+    calls.append({"desc": one, "local": counts()})
+    served.append({"desc": g.cpu(), "global": lg.cpu(), "local": loc.cpu(), "center_idx": ci.cpu()})
+torch.save(served, os.path.join(out, "served.pt"))
+print(json.dumps({"calls": calls, "load_s": [t1 - t0, t2 - t1], "first_call_s": first,
+                  "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+                  "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+                  "models_imported": any(m.startswith("patchaugnet_tpu_torch.models") for m in sys.modules),
+                  "meta": [meta, lmeta]}))
+"""
+
+
+def served_alike(torch, want, got, what):
+    """``got`` equal to ``want`` (float outputs within 1e-6, integer ones
+    exactly); returns the largest float difference."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)}, expected {want.dtype} {tuple(want.shape)}")
+    if not want.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: indices differ from the live forward's")
+        return 0.0
+    err = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or err > DEPLOY_TOL:
+        raise AssertionError(f"{what}: {err} from the live forward's")
+    return err
+
+
+def time_forwards(torch, forwards, clouds, iters):
+    """Seconds per batch of each of ``forwards`` (name -> callable) on
+    ``clouds``, in turns (a, b, b, a), each over ``iters`` batches after a
+    warm-up call, and the host's seconds to queue one call (the median of
+    ``ENQUEUE_REPS``, each behind a sleep kernel that holds the stream, so
+    the call only queues); returns name -> [two timings], name -> [two
+    queueing times]."""
+    names = list(forwards)
+    out = {name: [] for name in names}
+    queue = {name: [] for name in names}
+    for name in names + names[::-1]:
+        forwards[name](clouds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            forwards[name](clouds)
+        torch.cuda.synchronize()
+        out[name].append((time.perf_counter() - t0) / iters)
+        reps = []
+        for _ in range(ENQUEUE_REPS):
+            torch.cuda._sleep(4 * SLEEP_CYCLES)
+            t0 = time.perf_counter()
+            forwards[name](clouds)
+            reps.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        queue[name].append(sorted(reps)[len(reps) // 2])
+    return out, queue
+
+
+def export_cli(out, *args):
+    """``export_serving_torch.py``'s ``main`` into ``out``; returns (paths, seconds)."""
+    import export_serving_torch
+
+    t0 = time.perf_counter()
+    written = export_serving_torch.main([*args, "--out", out])
+    return written, time.perf_counter() - t0
+
+
+def deploy_families(torch, mods, records, dev, out, clouds):
+    """PPT-Net's (4 K1 and 8 K2 per call), PointNetVLAD's and MinkLoc3Dv2's
+    (no launch) global artifacts at B=32 from their seeded initialisation,
+    each held against the live forward on ``clouds``. Returns the launch
+    counts of the artifacts' calls."""
+    import evaluate_torch
+    from patchaugnet_tpu_torch import configs, serving
+
+    paths = []
+    for family, launches in (("pptnet", PPT_LAUNCHES), ("pointnet_vlad", {}), ("minkloc3dv2", {})):
+        (path,), export_s = export_cli(out, "--model_type", family, "--batch_sizes", str(B))
+        cfg = dict(configs.KNOWN_CONFIGS[os.path.basename(evaluate_torch.CONFIG_TABLE[family])], model_type=family)
+        model = evaluate_torch.load_state(family, cfg, None, dev).model
+        art, meta = serving.load_artifact(path)
+        reset_counts(mods, records)
+        got = art(clouds)
+        counts = read_counts(mods, records)
+        check_launches(counts, launches, f"{family} artifact")
+        paths.append(counts)
+        err = served_alike(torch, serving.build_forward_fn(model, dev)(clouds), got, f"{family} artifact")
+        measured(f"{family} artifact, B={B}, seeded initialisation",
+                 f"export {export_s:.2f} s, {meta['bytes'] / 1e6:.1f} MB, launches {counts}, max abs difference to "
+                 f"the live forward {err:.3g}")
+    return paths
+
+
+def phase_deploy(torch, mods, records, dev):
+    """The deployment path: a full-width reference-layout checkpoint of
+    ``configs.PATCH_AUG_NET`` exported by ``export_serving_torch.py`` at
+    B=32 and B=100, global and local; the B=32 artifacts served in a fresh
+    process (started as soon as they exist, while this one exports the
+    rest and checks the other families) against the live model fed the
+    same checkpoint; then descriptors/s of both. Returns every counted
+    run's launches."""
+    import tempfile
+
+    from patchaugnet_tpu_torch import configs, serving
+    from patchaugnet_tpu_torch.compat import load_torch_checkpoint, save_reference_checkpoint
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as out:
+        cfg = configs.PATCH_AUG_NET
+        pth = os.path.join(out, "patch_aug_net_ref.pth")
+        save_reference_checkpoint(pth, "patch_aug_net",
+                                  seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(30)), cfg)
+        gen = torch.Generator(device=dev).manual_seed(31)
+        requests = torch.rand(REQUESTS, B, N_POINTS, 3, generator=gen, device=dev)
+        torch.save(requests.cpu(), os.path.join(out, "requests.pt"))
+        reset_counts(mods, records)
+        written, export_s = [], 0.0
+        fresh = None
+        try:
+            for batch in DEPLOY_BATCHES:
+                paths, secs = export_cli(out, "--model_type", "patch_aug_net", "--weight", pth, "--batch_sizes",
+                                         str(batch), "--with_local")
+                written, export_s = written + paths, export_s + secs
+                if fresh is None:
+                    fresh = subprocess.Popen([sys.executable, "-c", SERVE_SCRIPT, ROOT, out, str(batch)],
+                                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            check_launches(read_counts(mods, records), {}, "export (traced, no launch)")
+            deployed = deploy_families(torch, mods, records, dev, out, requests[0])
+            stdout, stderr = fresh.communicate(timeout=600)
+        finally:
+            if fresh is not None and fresh.poll() is None:
+                fresh.kill()
+                fresh.wait()
+        if fresh.returncode != 0:
+            raise AssertionError(f"the fresh serving process failed:\n{stderr[-4000:]}")
+        report = json.loads(stdout.strip().splitlines()[-1])
+        if report["models_imported"] or report["matmul_tf32"] or report["cudnn_tf32"]:
+            raise AssertionError(f"fresh serving process: models imported {report['models_imported']}, TF32 "
+                                 f"matmul {report['matmul_tf32']}, cuDNN {report['cudnn_tf32']}")
+        want = {f"{k}.launches": v for k, v in FORWARD_LAUNCHES.items()}
+        for i, call in enumerate(report["calls"]):
+            for flavour, counts in call.items():
+                if {k: v for k, v in counts.items() if v} != want:
+                    raise AssertionError(f"artifact {flavour} request {i}: launches {counts}, expected {want}")
+        deployed.append({rec.name: sum(counts.get(f"{rec.module}.{rec.counter}", 0)
+                                       for call in report["calls"] for counts in call.values()) for rec in records})
+
+        live = load_torch_checkpoint(pth, "patch_aug_net", cfg, get_model("patch_aug_net", cfg))
+        forward, local = serving.build_forward_fn(live, dev), serving.build_local_forward_fn(live, dev)
+        errs = []
+        for i, (x, got) in enumerate(zip(requests, torch.load(os.path.join(out, "served.pt")))):
+            g = forward(x).cpu()
+            lg, loc, ci = (t.cpu() for t in local(x))
+            errs += [served_alike(torch, g, got["desc"], f"artifact desc request {i}"),
+                     served_alike(torch, lg, got["global"], f"artifact local request {i}: global"),
+                     served_alike(torch, loc, got["local"], f"artifact local request {i}: local"),
+                     served_alike(torch, ci, got["center_idx"], f"artifact local request {i}: centre indices")]
+        metas = {os.path.basename(p): json.load(open(p + ".json")) for p in written}
+        measured(f"patch_aug_net artifacts from a reference .pth ({', '.join(metas)})",
+                 f"export {export_s:.2f} s in all for {len(written)} (each "
+                 + ", ".join(f"{m['export_seconds']:.2f}" for m in metas.values()) + " s), sizes "
+                 + ", ".join(f"{m['bytes'] / 1e6:.1f}" for m in metas.values()) + " MB; in a fresh process load "
+                 + " / ".join(f"{t:.2f}" for t in report["load_s"]) + f" s (desc / local B={B}), first call "
+                 f"{report['first_call_s'] * 1e3:.1f} ms; {REQUESTS} requests of {B} x {N_POINTS}: K1 3 and K2 6 per "
+                 f"call of each artifact, nothing else; TF32 off; models not imported; max abs difference to the "
+                 f"live forward on the same .pth {max(errs):.3g} (centre indices equal)")
+
+        for batch, iters in THROUGHPUT_BATCHES:
+            art, _ = serving.load_artifact(os.path.join(out, f"patch_aug_net_desc_b{batch}.pt2"))
+            clouds = torch.rand(batch, N_POINTS, 3, generator=gen, device=dev)
+            reset_counts(mods, records)
+            served_alike(torch, forward(clouds), art(clouds), f"artifact B={batch}")
+            deployed.append(read_counts(mods, records))
+            secs, queue = time_forwards(torch, {"live": forward, "artifact": art}, clouds, iters)
+            measured(f"patch_aug_net throughput B={batch}, live forward against the artifact, in turns",
+                     "; ".join(f"{name} " + " / ".join(f"{batch / s:.1f}" for s in v) + " descriptors/s ("
+                               + " / ".join(f"{s * 1e3:.2f}" for s in v) + " ms per batch, the host queues a call in "
+                               + " / ".join(f"{q * 1e3:.2f}" for q in queue[name]) + " ms)"
+                               for name, v in secs.items()) + f", {iters} batches each")
+    say(f"phase 9 (deployment): {time.perf_counter() - t_phase:.1f} s")
+    return deployed
+
+
 def main():
     global CARD
     import torch
@@ -1781,15 +2018,17 @@ def main():
     cli_counts = phase_cli(torch, mods, records, step_ms)
     family_counts = phase_families(torch, ops, mods, records, dev)
     minkloc_counts = phase_minkloc(torch, mods, records, dev)
+    deploy_counts = phase_deploy(torch, mods, records, dev)
 
     # each kernel's launches on its paths: K1-K3 serving, K6 emd_loss, K4
     # the row-chunked auction, K1 and K2 the train step and its centres,
     # the CLIs' epoch, eval and refresh, and PPT-Net's and PointNetVLAD's
-    # serving, train steps and CLIs, and MinkLoc3Dv2's (none) (each run
-    # counts only its own kernels)
+    # serving, train steps and CLIs, MinkLoc3Dv2's (none), and the
+    # deployment's artifacts, in the fresh serving process and here (each
+    # run counts only its own kernels)
     paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts, *cli_counts, *family_counts,
-             *minkloc_counts)
-    launches = {name: sum(counts[name] for counts in paths) for name in serving_counts}
+             *minkloc_counts, *deploy_counts)
+    launches = {name: sum(counts.get(name, 0) for counts in paths) for name in serving_counts}
     # K5 (``topk_extract_pair``) is K3's function by K3's kernel, on no path
     # (the JAX package dispatches it nowhere): its line repeats K3's times
     k3 = next(r for r in records if r.name == "topk_extract")

@@ -5,20 +5,26 @@ The port's counterpart of ``evaluate.py``, with its flags and its
 ``CONFIG_TABLE``: model_type -> config resolution, checkpoint load, then
 whole-database descriptor extraction (timed), per-trip-pair
 recall/precision, and the top-k feature-space dump (top_k=300), which
-runs by default. ``--weight`` is a checkpoint of ``train_torch.py``. It
-runs on the card; ``--platform cpu`` runs it on the CPU, and without a
-CUDA device and without that flag it exits with a message.
+runs by default. ``--weight`` is a reference ``.pth`` (read by
+``compat.load_torch_checkpoint``, as ``evaluate.py:124-136`` reads it)
+or a checkpoint of ``train_torch.py``. It runs on the card; ``--platform
+cpu`` runs it on the CPU, and without a CUDA device and without that flag
+it exits with a message.
 
 It evaluates ``patch_aug_net``, ``pptnet``, ``pptnet_l2_norm``,
 ``pointnet_vlad`` and ``minkloc3dv2``; a model without local descriptors
 (PointNetVLAD, MinkLoc3Dv2) takes the global forward where the
 descriptor store would take the local one. Not ported, each refused with
-the ROADMAP item that brings it: reference ``.pth`` and JAX orbax weights
-(A12), ``--devices`` above 1 (A11), ``--precision bfloat16`` (A3).
+the ROADMAP item that brings it: ``--devices`` above 1 (A11),
+``--precision bfloat16`` (A3). The JAX package's orbax checkpoint
+directories are refused for good (ROADMAP C): the card's machine has
+neither JAX nor orbax, and ``compat.load_jax_variables`` carries JAX
+weights as numpy.
 
 Usage:
   python evaluate_torch.py --model_type patch_aug_net \
       --weight exp/patch_aug_net/saved_model/train_epoch_29_end --dataset oxford
+  python evaluate_torch.py --model_type patch_aug_net --weight ref_train_epoch_29_end.pth --dataset oxford
   python evaluate_torch.py --model_type patch_aug_net --dataset synthetic   # random init smoke
   python evaluate_torch.py --model_type pointnet_vlad --dataset synthetic
   python evaluate_torch.py --model_type minkloc3dv2 --dataset synthetic
@@ -45,7 +51,8 @@ def get_args(argv=None):
                    choices=sorted(CONFIG_TABLE))
     p.add_argument("--config", type=str, default=None,
                    help="override the model_type -> config resolution")
-    p.add_argument("--weight", type=str, default=None, help="checkpoint of train_torch.py")
+    p.add_argument("--weight", type=str, default=None,
+                   help="reference .pth or checkpoint of train_torch.py")
     p.add_argument("--dataset", type=str, default="oxford")
     p.add_argument("--exp_dir", type=str, default="exp")
     p.add_argument("--batch_size", type=int, default=100)
@@ -74,10 +81,33 @@ def refuse_unported(args):
         raise NotImplementedError("--devices above 1: sharded eval is not ported yet (ROADMAP A11)")
     if args.precision != "float32":
         raise NotImplementedError("--precision bfloat16 is not ported yet (ROADMAP A3, COMPUTE_DTYPE)")
-    if args.weight and (args.weight.endswith(".pth") or os.path.isdir(args.weight)):
+    if args.weight and os.path.isdir(args.weight):
         raise NotImplementedError(
-            f"--weight {args.weight}: reference .pth and JAX orbax weights are not read yet (ROADMAP A12); "
-            f"pass a checkpoint of train_torch.py")
+            f"--weight {args.weight}: orbax checkpoint directories of the JAX package are not read (ROADMAP C): "
+            f"the card's machine has neither JAX nor orbax; carry JAX weights as numpy with "
+            f"compat.load_jax_variables, or pass a reference .pth or a checkpoint of train_torch.py")
+
+
+def load_state(model_type, cfg, weight, device):
+    """The model as ``train_torch.py`` builds it (with the patch decoder where
+    the config trains one, so that its checkpoints restore exactly), in a
+    train state on ``device``, with ``weight`` loaded: a reference ``.pth``
+    through ``compat.load_torch_checkpoint``, else a checkpoint of
+    ``train_torch.py``; no ``weight`` leaves the seeded initialisation."""
+    import torch
+
+    from patchaugnet_tpu_torch import train
+    from patchaugnet_tpu_torch.compat import load_torch_checkpoint
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import training_init_
+
+    model = training_init_(get_model(model_type, cfg), torch.Generator().manual_seed(cfg.get("MANUAL_SEED", 123)))
+    state = train.create_train_state(model, cfg, device=device)
+    if weight and weight.endswith(".pth"):
+        load_torch_checkpoint(weight, model_type, cfg, state.model)
+    elif weight:
+        state, _ = train.restore_checkpoint(weight, state)
+    return state
 
 
 def eval_forward(model, device, local: bool):
@@ -106,8 +136,6 @@ def main(argv=None):
 
     from patchaugnet_tpu_torch import data, train
     from patchaugnet_tpu_torch.configs import load_config
-    from patchaugnet_tpu_torch.models import get_model
-    from patchaugnet_tpu_torch.nn import training_init_
     from patchaugnet_tpu_torch.utils import get_logger
 
     cfg = load_config(args.config or CONFIG_TABLE[args.model_type])
@@ -129,14 +157,9 @@ def main(argv=None):
     test_ds = data.PlaceRecognitionDataset(cfg["dataset"], for_training=False, **ds_kwargs)
     logger.info(f"test records: {len(test_ds)}, trips: {test_ds.scene.trip_names}")
 
-    # built as train_torch.py builds it (with the patch decoder where the
-    # config trains one) so that its checkpoints restore exactly; the eval
-    # forward never runs the decoder
-    model = training_init_(get_model(args.model_type, cfg),
-                           torch.Generator().manual_seed(cfg.get("MANUAL_SEED", 123)))
-    state = train.create_train_state(model, cfg, device=device)
+    # the eval forward never runs the patch decoder
+    state = load_state(args.model_type, cfg, args.weight, device)
     if args.weight:
-        state, _ = train.restore_checkpoint(args.weight, state)
         logger.info(f"loaded weights: {args.weight}")
     else:
         logger.info("no --weight given: evaluating a randomly initialised model")

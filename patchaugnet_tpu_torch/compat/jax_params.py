@@ -14,7 +14,8 @@ names follow the JAX tree, so the mapping is a walk over
 - any other parameter ``name`` of a module at P: ``params[P][name]``.
 
 It is strict: a missing key, a leaf of the tree that no module takes, or
-a shape mismatch raises.
+a shape mismatch raises. ``to_jax_variables(model)`` is the inverse: the
+model's parameters and buffers as that tree.
 
 ``load_jax_opt_state(state, opt_state)`` carries an optax Adam state
 (``count``, ``mu``, ``nu``, trees shaped like ``params``, as numpy) into
@@ -98,6 +99,20 @@ def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Module
         used.add(path)
     _check_all_taken(variables, used, "JAX variables")
     return model
+
+
+def to_jax_variables(model: nn.Module) -> Dict[str, Any]:
+    """``model``'s parameters and buffers as the JAX variable tree (numpy,
+    ``nn.Linear`` weights transposed back into kernels): the tree that
+    :func:`load_jax_variables` takes."""
+    tree: Dict[str, Any] = {}
+    for path, tensor, transpose in _tensors(model):
+        value = tensor.detach().cpu().numpy()
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(value.T if transpose else value)
+    return tree
 
 
 def _adam_state(opt_state) -> Tuple[int, Mapping[str, Any], Mapping[str, Any]]:

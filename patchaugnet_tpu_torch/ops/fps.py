@@ -12,7 +12,9 @@ The kernel (``csrc/fps.cu``) is bound by latency on the H100: m - 1
 dependent steps, each an O(n) update and a block-wide arg-max. One block
 of T threads takes a cloud, each thread keeping PPT points and their
 min-distances in registers; :func:`layout_for` picks (T, PPT) per level,
-and a tensor on the card runs the kernel, with no plain fallback.
+and a tensor on the card runs the kernel, with no plain fallback. Both
+devices reach it through the operator ``torch.ops.pan.fps``
+(``ops/library.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from . import contracts
 from .cuda import launch
+from .library import LIB
 
 # kernel launches so far; chip_smoke.py resets and reads it
 launches = 0
@@ -71,37 +74,50 @@ def farthest_point_sample(xyz: torch.Tensor, m: int) -> torch.Tensor:
       m: number of samples; ``m > n`` is allowed (indices repeat).
 
     Returns:
-      ``(b, m)`` int32 indices into ``xyz``. A CUDA tensor runs the
-      kernel; a CPU tensor the plain torch version.
+      ``(b, m)`` int32 indices into ``xyz``, by ``torch.ops.pan.fps``: a
+      CUDA tensor runs the kernel, a CPU tensor the plain torch version.
     """
     contracts.check_points(xyz, "xyz")
     if m <= 0:
         raise ValueError(f"m={m} must be positive")
     if contracts.check_device(xyz, "xyz") == "cuda":
         return _fps_cuda(xyz, m)
-    return _farthest_point_sample_torch(xyz, m)
+    return torch.ops.pan.fps(xyz, m, 0, 0)
 
 
 def _fps_cuda(xyz: torch.Tensor, m: int, layout: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """The kernel; ``layout`` overrides :func:`layout_for` (tests and tuning)."""
+    """The kernel at the layout :func:`layout_for` picks, or at ``layout``
+    (tests and tuning)."""
+    threads, ppt = layout_for(xyz.shape[1]) if layout is None else layout
+    return torch.ops.pan.fps(xyz, m, threads, ppt)
+
+
+def _fps_kernel(xyz: torch.Tensor, m: int, threads: int, ppt: int) -> torch.Tensor:
+    """``pan::fps`` for CUDA: one launch of the kernel, counted in ``launches``."""
     global launches
     b, n, _ = xyz.shape
     if n == 0 or n >= 2**31 // 3:
         raise ValueError(f"xyz {tuple(xyz.shape)}: the CUDA FPS kernel takes 0 < n < 2**31 / 3")
-    if layout is None:
-        layout = layout_for(n)
-    elif layout not in LAYOUTS or 0 < layout[0] * layout[1] < n:
-        raise ValueError(f"layout={layout}: the CUDA FPS kernel is built for {LAYOUTS} "
+    if (threads, ppt) not in LAYOUTS or 0 < threads * ppt < n:
+        raise ValueError(f"layout={(threads, ppt)}: the CUDA FPS kernel is built for {LAYOUTS} "
                          f"(threads * points per thread >= n, or {SCRATCH}), at n={n}")
     if m == 1 or b == 0:
         return torch.zeros((b, m), dtype=torch.int32, device=xyz.device)
     xyz = xyz.to(torch.float32).contiguous()
     idx = torch.empty((b, m), dtype=torch.int32, device=xyz.device)
-    threads, ppt = layout
     scratch = torch.empty((b, n), dtype=torch.float32, device=xyz.device) if ppt == 0 else None
     launch("fps", "pan_fps", xyz.device, xyz, scratch, idx, b, n, m, threads, ppt)
     launches += 1
     return idx
+
+
+def _fps_plain(xyz: torch.Tensor, m: int, threads: int, ppt: int) -> torch.Tensor:
+    """``pan::fps`` for the CPU: the plain version (the layout is the card's)."""
+    return _farthest_point_sample_torch(xyz, m)
+
+
+def _fps_fake(xyz: torch.Tensor, m: int, threads: int, ppt: int) -> torch.Tensor:
+    return xyz.new_empty((xyz.shape[0], m), dtype=torch.int32)
 
 
 def _farthest_point_sample_torch(xyz: torch.Tensor, m: int) -> torch.Tensor:
@@ -123,3 +139,8 @@ def _farthest_point_sample_torch(xyz: torch.Tensor, m: int) -> torch.Tensor:
         last = torch.argmax(min_d, dim=-1)
         idx[:, i] = last.to(torch.int32)
     return idx
+
+
+LIB.impl("fps", _fps_kernel, "CUDA")
+LIB.impl("fps", _fps_plain, "CPU")
+torch.library.register_fake("pan::fps", _fps_fake, lib=LIB)

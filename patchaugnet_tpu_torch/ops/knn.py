@@ -15,7 +15,8 @@ shared memory, and the G lanes keep one sorted list of the query's best
 pairs between them, whose k-th entry rejects candidates for all of them.
 The list holds 96 pairs at the most; a larger k runs in passes of 96
 inside the kernel, and a batch of more than 65535 clouds in one launch
-per 65535.
+per 65535. Both devices reach it through the operator
+``torch.ops.pan.knn`` (``ops/library.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 
 from . import contracts
 from .cuda import launch, sm_count
+from .library import LIB
 from .pairwise import pairwise_sqdist
 from .topk import _topk_extract_torch, topk_extract
 
@@ -77,8 +79,9 @@ def knn(
       ``(idx, sqdist)``: ``(b, m, k)`` int32 indices sorted by ascending
       distance, and the matching squared distances.
 
-    A CPU tensor runs the plain version. A CUDA tensor of 3-d points runs
-    the kernel at any shape; points of another width take the split path.
+    3-d points go through ``torch.ops.pan.knn``: a CUDA tensor runs the
+    kernel at any shape, a CPU tensor the plain version. Points of another
+    width take the split path.
     """
     contracts.check_features(xyz, "xyz")
     if new_xyz is None:
@@ -88,15 +91,28 @@ def knn(
     contracts.check_k(k, xyz.shape[-2])
     if approx_recall is not None:
         raise NotImplementedError("approximate kNN (lax.approx_max_k) is not ported")
-    if contracts.check_device(xyz, "xyz") == "cuda" and xyz.shape[-1] == 3:
+    if xyz.shape[-1] != 3:
+        return topk_extract(pairwise_sqdist(new_xyz, xyz), k)
+    if contracts.check_device(xyz, "xyz") == "cuda":
         return _knn_cuda(xyz, new_xyz, k)
-    return topk_extract(pairwise_sqdist(new_xyz, xyz), k)
+    return torch.ops.pan.knn(xyz, new_xyz, k, 0)
 
 
 def _knn_cuda(
     xyz: torch.Tensor, new_xyz: torch.Tensor, k: int, lanes: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel; ``lanes`` overrides :func:`lanes_for` (tests and tuning)."""
+    """The kernel at the lanes :func:`lanes_for` picks for this card, or
+    at ``lanes`` (tests and tuning)."""
+    if lanes is None:
+        b, n, _ = xyz.shape
+        lanes = lanes_for(b, n, new_xyz.shape[1], k, sm_count(xyz.device))
+    return torch.ops.pan.knn(xyz, new_xyz, k, lanes)
+
+
+def _knn_kernel(
+    xyz: torch.Tensor, new_xyz: torch.Tensor, k: int, lanes: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pan::knn`` for CUDA: one launch of the kernel, counted in ``launches``."""
     global launches
     if new_xyz.shape[-1] != 3:
         raise ValueError(f"new_xyz: expected (B, M, 3), got {tuple(new_xyz.shape)}")
@@ -107,9 +123,7 @@ def _knn_cuda(
     if not 1 <= k <= n or n >= 2**31 // 3:
         raise ValueError(f"xyz {tuple(xyz.shape)}, k={k}: the CUDA kNN kernel takes 1 <= k <= n "
                          f"and n < 2**31 / 3")
-    if lanes is None:
-        lanes = lanes_for(b, n, m, k, sm_count(xyz.device))
-    elif lanes not in LANES or (-(-k // lanes) > _MAX_SLOTS and lanes != LANES[-1]):
+    if lanes not in LANES or (-(-k // lanes) > _MAX_SLOTS and lanes != LANES[-1]):
         raise ValueError(f"lanes={lanes}: the CUDA kNN kernel takes {LANES} with at most "
                          f"{_MAX_SLOTS} list slots per lane, ceil(k / lanes), at k={k}, "
                          f"or {LANES[-1]} at any k")
@@ -122,6 +136,20 @@ def _knn_cuda(
     launch("knn", "pan_knn", xyz.device, xyz, new_xyz, idx, d2, b, n, m, k, lanes)
     launches += 1
     return idx, d2
+
+
+def _knn_plain(
+    xyz: torch.Tensor, new_xyz: torch.Tensor, k: int, lanes: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pan::knn`` for the CPU: the plain version (the lanes are the card's)."""
+    return _knn_torch(xyz, new_xyz, k)
+
+
+def _knn_fake(
+    xyz: torch.Tensor, new_xyz: torch.Tensor, k: int, lanes: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    shape = (xyz.shape[0], new_xyz.shape[1], k)
+    return xyz.new_empty(shape, dtype=torch.int32), xyz.new_empty(shape, dtype=torch.float32)
 
 
 def _knn_torch(xyz: torch.Tensor, new_xyz: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -151,3 +179,8 @@ def dilated_knn(
         perm = torch.randperm(k, generator=generator, device=generator.device)
         idx = idx[..., perm.to(idx.device)]
     return idx
+
+
+LIB.impl("knn", _knn_kernel, "CUDA")
+LIB.impl("knn", _knn_plain, "CPU")
+torch.library.register_fake("pan::knn", _knn_fake, lib=LIB)

@@ -10,38 +10,62 @@ local forward of PointNetVLAD is ``None``). Each batch runs under
 ``torch.inference_mode()`` on the model's device, with the model in eval
 mode whatever mode it was left in (a train step puts it in train mode),
 and leaves that mode as it was: the JAX forwards pass ``train=False`` on
-every call. (The JAX package's
-exported artifact has no counterpart yet.)
+every call.
+
+The export half of ``patchaugnet_tpu/serving.py``: :func:`export_descriptor_fn`
+captures one of those forwards with ``torch.export`` at a fixed batch
+size, :func:`save_artifact` writes the program with its weights and a
+JSON sidecar, and :func:`load_artifact` serves it. A serving host needs
+torch, the port's two registered kernels (``torch.ops.pan.fps`` and
+``torch.ops.pan.knn``, ``ops/library.py``) and the file: loading imports
+``ops`` and none of ``models``, ``nn``, ``train`` or ``data``. The program
+holds one ``pan.fps`` / ``pan.knn`` node per kernel launch, which runs the
+CUDA kernel on the card and the plain version on the CPU.
+
+Device note: the program's weights and the tensors it makes lie on the
+device it was exported on, and the kernels' launch shapes are those
+picked for that card (``ops/library.py``), so an artifact runs on the
+device (and the card model) it was exported for; export on the serving
+device. (The JAX package's artifact is bound to its lowering platforms
+the same way, ``patchaugnet_tpu/serving.py:21-27``.)
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Iterator, Optional, Tuple, Union
+import json
+import os
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from .models import PatchAugNet, PPTNet
-
 Clouds = Union[torch.Tensor, np.ndarray]
+_META_SUFFIX = ".json"
+_FORMAT = "patchaugnet-tpu-torch-serving/1"
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
     for the CPU. Raises ``RuntimeError`` when CUDA is asked for and absent.
 
-    For CUDA it also switches TF32 off for matrix products and cuDNN: the
-    port computes in full f32, as the JAX CLIs pin f32 matmul precision
-    (low-precision products reorder near-tied retrieval rankings).
+    For CUDA it also switches TF32 off (:func:`full_f32_products`).
     """
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        full_f32_products()
     return device
+
+
+def full_f32_products() -> None:
+    """Switch TF32 off for matrix products and cuDNN: the port computes in
+    full f32, as the JAX CLIs pin f32 matmul precision (low-precision
+    products reorder near-tied retrieval rankings). These are flags of the
+    process, not of a model or an exported program."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def _prepare(model: nn.Module, device) -> torch.device:
@@ -72,6 +96,8 @@ def global_desc(out) -> torch.Tensor:
 def has_local_fields(model: nn.Module) -> bool:
     """Whether ``model``'s output carries ``fp_features`` and
     ``center_idx_origin`` (PatchAugNet, PPT-Net)."""
+    from .models import PatchAugNet, PPTNet
+
     return isinstance(model, (PatchAugNet, PPTNet))
 
 
@@ -114,3 +140,110 @@ def platform_device(platform: str) -> torch.device:
         raise SystemExit("no CUDA device: this command runs on an NVIDIA GPU; pass --platform cpu to run it on "
                          "the CPU")
     return resolve_device("cuda")
+
+
+class _Descriptors(nn.Module):
+    """The eval forward as a module: global descriptors, or the local
+    forward's (global, local, centre indices)."""
+
+    def __init__(self, model: nn.Module, with_local: bool):
+        super().__init__()
+        self.model, self.with_local = model, with_local
+
+    def forward(self, clouds: torch.Tensor):
+        out = self.model(clouds)
+        if self.with_local:
+            return out.global_desc, out.fp_features[-2], out.center_idx_origin[0]
+        return global_desc(out)
+
+
+def export_descriptor_fn(model: nn.Module, batch_size: int, n_points: int, *, with_local: bool = False,
+                         device: Union[str, torch.device] = "cuda") -> torch.export.ExportedProgram:
+    """Capture the eval forward of ``model`` on ``device`` (weights
+    included) for ``(batch_size, n_points, 3)`` f32 clouds, the batch size
+    baked in. ``with_local=True`` captures the (global, local, centre
+    indices) forward, and raises for a model without local descriptors.
+    The model runs in eval mode under ``torch.no_grad()`` while it is
+    traced; its mode is restored."""
+    if with_local and not has_local_fields(model):
+        raise ValueError(f"{type(model).__name__} exposes no local descriptors; "
+                         "export the global-only artifact instead")
+    device = _prepare(model, device)
+    example = torch.zeros((batch_size, n_points, 3), dtype=torch.float32, device=device)
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return torch.export.export(_Descriptors(model, with_local), (example,))
+    finally:
+        model.train(was_training)
+
+
+def _specs(program: torch.export.ExportedProgram) -> Tuple[List[Any], List[Any]]:
+    """The values (fake tensors) of the program's user inputs and outputs."""
+    sig = program.graph_signature
+    inputs = [n.meta["val"] for n in program.graph.nodes if n.op == "placeholder" and n.name in sig.user_inputs]
+    out_node = next(n for n in program.graph.nodes if n.op == "output")
+    outputs = [n.meta["val"] for n in out_node.args[0] if n.name in sig.user_outputs]
+    return inputs, outputs
+
+
+def _describe(values) -> List[Dict[str, Any]]:
+    return [{"shape": list(v.shape), "dtype": str(v.dtype).replace("torch.", "")} for v in values]
+
+
+def save_artifact(exported: torch.export.ExportedProgram, path: str, meta: Optional[Dict[str, Any]] = None) -> None:
+    """Write the program (``torch.export.save``, weights included) to
+    ``path`` and a JSON sidecar to ``<path>.json``: the format, the torch
+    version, the device it was exported on, its inputs' and outputs'
+    shapes and dtypes, its size in bytes, and ``meta``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.export.save(exported, path)
+    inputs, outputs = _specs(exported)
+    device = inputs[0].device
+    record = {
+        "format": _FORMAT,
+        "torch_version": torch.__version__,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "inputs": _describe(inputs),
+        "outputs": _describe(outputs),
+        "bytes": os.path.getsize(path),
+    }
+    record.update(meta or {})
+    with open(path + _META_SUFFIX, "w") as f:
+        json.dump(record, f, indent=2)
+
+
+def load_artifact(path: str) -> Tuple[Callable, Dict[str, Any]]:
+    """Load an artifact into a ``clouds -> outputs`` callable, with its
+    sidecar's metadata (``{}`` where the sidecar is gone).
+
+    The callable takes clouds of the exported shape only (a batch of
+    another size raises ``ValueError``), on the device the artifact was
+    exported on, and runs under ``torch.inference_mode()``; its
+    ``program`` attribute is the loaded ``ExportedProgram``. Loading
+    registers the port's kernels and switches TF32 off
+    (:func:`full_f32_products`): the flags are not part of the program, and
+    a fresh process would otherwise form the products in TF32."""
+    from . import ops  # noqa: F401  (registers torch.ops.pan.fps and torch.ops.pan.knn)
+
+    full_f32_products()
+    program = torch.export.load(path)
+    inputs, _ = _specs(program)
+    shape, device = tuple(inputs[0].shape), inputs[0].device
+    module = program.module()
+
+    def serve(clouds: Clouds):
+        x = torch.as_tensor(clouds, dtype=torch.float32, device=device)
+        if tuple(x.shape) != shape:
+            raise ValueError(f"clouds of shape {tuple(x.shape)}: this artifact takes {shape} "
+                             f"(its batch size is baked in)")
+        with torch.inference_mode():
+            return module(x)
+
+    serve.program = program
+    meta: Dict[str, Any] = {}
+    if os.path.exists(path + _META_SUFFIX):
+        with open(path + _META_SUFFIX) as f:
+            meta = json.load(f)
+    return serve, meta

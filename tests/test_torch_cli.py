@@ -11,7 +11,12 @@
   where pandas, sklearn, PyYAML, protobuf, TensorBoard, JAX and the JAX
   package do not import, as on the card's machine;
 - what the CLIs refuse: no CUDA device without ``--platform cpu``, and each
-  option that is not ported.
+  option that is not ported;
+- the deployment tools on the tiny configuration, in this process:
+  ``evaluate_torch.py --weight`` on a reference ``.pth`` (the eval's
+  descriptors those of the model that wrote it), ``parity_harness_torch.py``
+  diffed against its own first run (zero delta, PASS), and
+  ``train_torch.py --print-flops``.
 """
 import glob
 import json
@@ -31,11 +36,12 @@ from patchaugnet_tpu import train as jtrain
 from patchaugnet_tpu.models import PatchAugNet as JaxPatchAugNet
 
 from patchaugnet_tpu_torch import configs, data, serving, train
-from patchaugnet_tpu_torch.compat import load_jax_variables
+from patchaugnet_tpu_torch.compat import load_jax_variables, save_reference_checkpoint
 from patchaugnet_tpu_torch.models import PatchAugNet, get_model
 from patchaugnet_tpu_torch.nn import training_init_
 
 import evaluate_torch
+import parity_harness_torch
 import train_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -177,7 +183,6 @@ def test_train_cli_needs_cuda_or_platform_cpu(tmp_path):
 @pytest.mark.parametrize("flags, item", [
     (["--devices", "2"], "A11"),
     (["--precision", "bfloat16"], "A3"),
-    (["--print-flops"], "A12"),
     (["--config", os.path.join(REPO, "configs", "minkloc3dv2.yaml"), "--precision", "bfloat16"], "A3"),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flags, item):
@@ -190,8 +195,7 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, flags, item):
 def test_evaluate_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--dataset", "synthetic", "--platform", "cpu", "--exp_dir", str(tmp_path)]
     for flags, item in ((["--model_type", "minkloc3dv2", "--precision", "bfloat16"], "A3"),
-                        (["--weight", "model.pth"], "A12"), (["--weight", str(tmp_path)], "A12"),
-                        (["--devices", "2"], "A11")):
+                        (["--weight", str(tmp_path)], "orbax"), (["--devices", "2"], "A11")):
         with pytest.raises(NotImplementedError, match=item):
             evaluate_torch.main(base + flags)
 
@@ -296,3 +300,92 @@ def test_cli_minkloc3dv2(tmp_path, monkeypatch, cli):
     got = evaluate_torch.eval_forward(model, CPU, local=True)(clouds)
     assert isinstance(got, torch.Tensor) and got.shape == (2, 32)
     np.testing.assert_allclose(test_ds.scene.global_descs[:2], got.numpy(), atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def reference_pth(tmp_path_factory):
+    """A reference ``.pth`` of the tiny configuration's PatchAugNet (seeded
+    initialisation, decoder included), and that model."""
+    model = training_init_(get_model("patch_aug_net", TINY), torch.Generator().manual_seed(5))
+    path = str(tmp_path_factory.mktemp("pth") / "ref_train_epoch_0_end.pth")
+    save_reference_checkpoint(path, "patch_aug_net", model, TINY)
+    return path, model
+
+
+def test_evaluate_cli_reads_a_reference_pth(tmp_path, monkeypatch, reference_pth):
+    """``evaluate_torch.py --weight *.pth`` evaluates the weights of the
+    model that wrote the file (its descriptors, within the f32 rounding
+    of another batch size)."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    path, model = reference_pth
+    out = evaluate_torch.main(["--config", os.path.join(REPO, "configs", "tiny_smoke.yaml"), "--weight", path,
+                               "--dataset", "synthetic", "--platform", CPU, "--exp_dir", str(tmp_path),
+                               "--no_save_top_k"])
+    assert out["num_pairs"] == 2 and 0 <= out["recall_at_1"] <= 100
+    scene = out["test_ds"].scene
+    want = serving.build_forward_fn(model, CPU)(scene.get_clouds([0, 1, 2])[0])
+    np.testing.assert_allclose(scene.global_descs[:3], want.numpy(), atol=1e-6)
+
+
+def test_parity_harness_self_diff(tmp_path, capsys, reference_pth):
+    """``parity_harness_torch.py`` on the synthetic scene from a reference
+    ``.pth``: its log parses as the reference's, and a second run diffed
+    against the first passes with a zero delta on every trip pair."""
+    argv = ["--config", os.path.join(REPO, "configs", "tiny_smoke.yaml"), "--weight", reference_pth[0],
+            "--dataset", "synthetic", "--platform", CPU]
+    assert parity_harness_torch.main(argv) == 0
+    log = tmp_path / "ours.log"
+    log.write_text(capsys.readouterr().out)
+    pairs = parity_harness_torch.parse_reference_log(str(log))
+    assert set(pairs) == {("trip_0", "trip_1"), ("trip_1", "trip_0")}
+    assert all(len(v["recall"]) == 25 and "opr" in v for v in pairs.values())
+    report = tmp_path / "report.json"
+    assert parity_harness_torch.main(argv + ["--reference-log", str(log), "--out", str(report)]) == 0
+    assert "PARITY: PASS" in capsys.readouterr().out
+    diffs = json.loads(report.read_text())["diffs"]
+    assert len(diffs) == 2 and all(d["max_abs_d_recall"] == 0 and d["d_one_percent"] == 0 for d in diffs.values())
+    shifted = tmp_path / "shifted.log"
+    shifted.write_text(log.read_text().replace("Recall@top1%(=1): ", "Recall@top1%(=1): 5"))
+    assert parity_harness_torch.main(argv + ["--reference-log", str(shifted)]) == 1
+
+
+def test_train_cli_prints_flops(tmp_path, monkeypatch):
+    """``train_torch.py --print-flops`` logs the forward's GFLOPs per cloud
+    (the products' and convolutions', two per multiply-add, on a probe of
+    4 clouds) and the parameter table per top-level module."""
+    import logging
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    logger = logging.getLogger("patchaugnet_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        run = train_torch.main(["--config", os.path.join(REPO, "configs", "tiny_smoke.yaml"), "--dataset", "synthetic",
+                                "--platform", CPU, "--epochs", "0", "--exp_dir", str(tmp_path), "--print-flops"])
+    finally:
+        logger.removeHandler(handler)
+    flops = [r for r in records if r.startswith("FLOPs: ")]
+    table = [r for r in records if r.startswith("Parameter table: ")]
+    assert len(flops) == 1 and float(flops[0].split()[1]) > 0
+    model = run["state"].model
+    assert len(table) == 1 and f"'TOTAL': {sum(p.numel() for p in model.parameters())}" in table[0]
+
+
+def test_profiling_utils():
+    """``utils.flops`` counts two FLOPs per multiply-add of a product,
+    ``parameter_count`` sums per top-level module, ``DeviceTimer`` times
+    on the host's clock on the CPU."""
+    from patchaugnet_tpu_torch.utils import DeviceTimer, flops, parameter_count
+
+    net = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(), torch.nn.Linear(16, 4, bias=False))
+    x = torch.zeros(5, 8)
+    with torch.no_grad():
+        assert flops(net, x) == 2 * 5 * (8 * 16 + 16 * 4)
+    assert parameter_count(net) == {"0": 8 * 16 + 16, "1": 0, "2": 16 * 4, "TOTAL": 8 * 16 + 16 + 16 * 4}
+    timer = DeviceTimer(CPU)
+    for _ in range(3):
+        assert timer.timed_call(net, x).shape == (5, 4)
+    stats = timer.stats()
+    assert stats["n"] == 2 and stats["mean_ms"] >= 0 and len(timer.times_ms) == 3

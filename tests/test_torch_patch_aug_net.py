@@ -198,7 +198,7 @@ import patchaugnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(patchaugnet_tpu_torch.__path__, "patchaugnet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for script in ("train_torch", "evaluate_torch", "create_dataset_torch"):
+for script in ("train_torch", "evaluate_torch", "create_dataset_torch", "export_serving_torch", "parity_harness_torch"):
     importlib.import_module(script)
 leaked = [m for m in sys.modules if (m.split(".")[0] in blocked or m.startswith("google.protobuf"))
           and sys.modules[m] is not None]
@@ -207,14 +207,14 @@ for name in ("train", "train.state", "train.step", "losses.metric", "losses.patc
              "train.loop", "data", "data.dataset_info", "data.pointclouds", "data.retrieval", "data.overlap",
              "data.query_overlap_pb2", "data.scene_dataset", "data.tuple_dataset", "utils",
              "utils.logging_util", "utils.meters", "utils.timestamps", "models.pptnet", "models.pointnet_vlad",
-             "nn.attention", "nn.vlad"):
+             "nn.attention", "nn.vlad", "ops.library", "compat.torch_loader", "utils.profiling"):
     assert "patchaugnet_tpu_torch." + name in names, name
 print(len(names))
 """
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every port module and the three root ``*_torch.py`` scripts import
+    """Every port module and the five root ``*_torch.py`` scripts import
     with jax, flax and patchaugnet_tpu blocked in ``sys.modules`` (an
     exact-name block, not a prefix match: ``patchaugnet_tpu`` is a prefix
     of ``patchaugnet_tpu_torch``), the slices' modules among them; and with

@@ -15,9 +15,11 @@ of ``train.py:159-260``: flat pair-expanded batches of
 ``SMOOTHAP_BATCH_SIZE`` (16) clouds, AdamW at ``WEIGHT_DECAY`` under
 MultiStepLR (``scheduler_milestones``, default 250 and 350), a
 checkpoint per epoch and an eval every ``EVAL_EVERY_N_EPOCHS`` (1).
-Not ported, each refused with the ROADMAP item that brings it:
-``--devices`` above 1 (A11), ``--precision bfloat16`` (A3) and
-``--print-flops`` (A12).
+``--print-flops`` logs the eval forward's GFLOPs per cloud on a probe of
+4 clouds and the parameter table, as ``train.py:199-210`` does (counted by
+``utils.flops``: products and convolutions only). Not ported, each refused
+with the ROADMAP item that brings it: ``--devices`` above 1 (A11) and
+``--precision bfloat16`` (A3).
 
 Usage:
   python train_torch.py --config configs/patch_aug_net.yaml --dataset oxford
@@ -62,7 +64,7 @@ def get_args(argv=None):
                    help="synthetic dataset only: per-point gaussian noise stddev added to every scene "
                         "cloud (seeded), so that random-init recall starts low")
     p.add_argument("--print-flops", action="store_true",
-                   help="print FLOPs at startup (not ported)")
+                   help="log the forward's GFLOPs per cloud and the parameter table at startup")
     p.add_argument("--precision", type=str, default=None, choices=["float32", "bfloat16"],
                    help="model compute dtype (only float32 is ported)")
     return p.parse_args(argv)
@@ -98,8 +100,6 @@ def refuse_unported(args):
         raise NotImplementedError("--devices above 1: data-parallel training is not ported yet (ROADMAP A11)")
     if args.precision == "bfloat16":
         raise NotImplementedError("--precision bfloat16 is not ported yet (ROADMAP A3, COMPUTE_DTYPE)")
-    if args.print_flops:
-        raise NotImplementedError("--print-flops is not ported yet (ROADMAP A12, utils)")
 
 
 def main(argv=None):
@@ -175,6 +175,15 @@ def main(argv=None):
             positives_per_query=cfg.get("positives_per_query", 4))
     state = train.create_train_state(model, cfg, steps_per_epoch=steps_per_epoch, device=device, tx=tx)
     logger.info(f"Parameters: {sum(p.numel() for p in state.model.parameters()):,}")
+    if args.print_flops:
+        # the reference prints fvcore's GFLOPs on a 4 x 4096 x 3 probe at
+        # startup (train_place_recognition.py:551-553)
+        from patchaugnet_tpu_torch.utils import flops, parameter_count
+
+        probe = torch.zeros((4, cfg["NUM_POINTS"], 3), device=device)
+        forward = train.build_forward_fn(state.model, device)
+        logger.info(f"FLOPs: {flops(forward, probe) / 4 / 1e9:.4f} GFLOPs/cloud (products and convolutions)")
+        logger.info(f"Parameter table: {parameter_count(state.model)}")
 
     starting_epoch = 0
     if cfg["resume"]:
