@@ -131,8 +131,27 @@ Phases, each fatal on failure:
    once the B=32 artifacts exist and serves while this one goes on);
    then PPT-Net's (4 K1 and 8 K2 per call), PointNetVLAD's and
    MinkLoc3Dv2's (no launch) global artifacts at B=32, each held against
-   its live forward;
-10. report: one ``{"kernels": [...]}`` line, the card's name and power
+   its live forward; the fresh process also serves the bf16 PatchAugNet
+   artifact at B=32 (``--precision bfloat16``, same ``.pth``), each call
+   launching K1 3 and K2 6 times, with cuBLAS's bf16 reductions off, its
+   descriptors f32 and bit-equal to the live bf16 forward's;
+10. precision: mixed precision (``COMPUTE_DTYPE: bfloat16``) and ``REMAT``
+   at full width. Each family (PatchAugNet, PPT-Net, PointNetVLAD,
+   MinkLoc3Dv2) and its bf16 twin on the same seeded weights at B=32 and
+   B=100: the bf16 descriptors f32, finite, within cosine 0.999 of the
+   f32 forward's, the same K1/K2 launches, PatchAugNet's and PPT-Net's
+   provenance indices equal, MinkLoc3Dv2's tables and maps equal;
+   descriptors/s of both in turns and each one's peak memory. The
+   flagship bf16 train step at 72 clouds for three steps (K1 3 and K2 6
+   each, metrics finite, every parameter, statistic and Adam moment f32),
+   then ms per step of bf16 and f32 in turns; MinkLoc3Dv2's bf16 SmoothAP
+   step at 16 clouds once. The flagship step with ``REMAT`` against the
+   plain step from one copied state, both with deterministic algorithms
+   (the gathers' atomic backward): the total within 1e-6 relative, the
+   parameters within 1e-6, the running statistics equal (updated once),
+   K1 6 and K2 12 launches (the recomputed forward); then ms per step and
+   peak memory of both;
+11. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -192,6 +211,13 @@ EVAL_REPEATS = 10                             # timed eval sweeps of the test sp
 DEPLOY_BATCHES = (32, 100)                    # the batch sizes exported in phase 9
 DEPLOY_TOL = 1e-6                             # float outputs of an artifact against the live forward
 ENQUEUE_REPS = 5                              # calls queued behind a sleep kernel per host-cost reading
+# phase 10: each family's config, its kernel launches per forward
+PRECISION_FAMILIES = (("patch_aug_net", "PATCH_AUG_NET", FORWARD_LAUNCHES), ("pptnet", "PPTNET_ORIGIN", PPT_LAUNCHES),
+                      ("pointnet_vlad", "POINTNET_VLAD", {}), ("minkloc3dv2", "MINKLOC3DV2", {}))
+PRECISION_BATCHES = ((32, 5), (100, 2))       # (batch size, timed batches per turn)
+PRECISION_STEPS = 3                           # bf16 train steps checked, then timed per turn
+MIN_COSINE = 0.999                            # bf16 descriptors against f32 (the JAX suite's bound)
+REMAT_RTOL, REMAT_ATOL = 1e-6, 1e-6           # REMAT against the plain step (the JAX suite's bounds)
 
 
 def say(*parts):
@@ -1774,10 +1800,12 @@ def phase_minkloc(torch, mods, records, dev):
 
 
 # the fresh serving process of phase 9: loads the PatchAugNet artifacts
-# (argv: the checkout, the directory they lie in, their batch size), serves the requests
-# saved there, and prints one JSON line: per request the launch counts of
-# each artifact's call, the load and first-call seconds, the TF32 flags,
-# and whether the port's models were imported; the outputs go to served.pt
+# (argv: the checkout, the directory they lie in, their batch size; the
+# bf16 one in its bf16/ subdirectory), serves the requests saved there,
+# and prints one JSON line: per request the launch counts of each
+# artifact's call, the load and first-call seconds, the TF32 and bf16
+# reduction flags, and whether the port's models were imported; the
+# outputs go to served.pt
 SERVE_SCRIPT = r"""
 import importlib, json, os, sys, time
 root, out, batch = sys.argv[1:4]
@@ -1790,6 +1818,7 @@ fwd, meta = serving.load_artifact(os.path.join(out, f"patch_aug_net_desc_b{batch
 t1 = time.perf_counter()
 lfwd, lmeta = serving.load_artifact(os.path.join(out, f"patch_aug_net_local_b{batch}.pt2"))
 t2 = time.perf_counter()
+bfwd, bmeta = serving.load_artifact(os.path.join(out, "bf16", f"patch_aug_net_desc_b{batch}.pt2"))
 requests = torch.load(os.path.join(out, "requests.pt")).cuda()
 counters = ((fps, "launches"), (knn, "launches"), (topk, "launches"), (topk, "price_launches"),
             (topk, "chunked_launches"))
@@ -1809,14 +1838,19 @@ for x in requests:
     reset()
     lg, loc, ci = lfwd(x)
     torch.cuda.synchronize()
-    calls.append({"desc": one, "local": counts()})
-    served.append({"desc": g.cpu(), "global": lg.cpu(), "local": loc.cpu(), "center_idx": ci.cpu()})
+    two = counts()
+    reset()
+    b16 = bfwd(x)
+    torch.cuda.synchronize()
+    calls.append({"desc": one, "local": two, "bf16": counts()})
+    served.append({"desc": g.cpu(), "global": lg.cpu(), "local": loc.cpu(), "center_idx": ci.cpu(), "bf16": b16.cpu()})
 torch.save(served, os.path.join(out, "served.pt"))
 print(json.dumps({"calls": calls, "load_s": [t1 - t0, t2 - t1], "first_call_s": first,
                   "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
                   "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+                  "bf16_reduction": torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
                   "models_imported": any(m.startswith("patchaugnet_tpu_torch.models") for m in sys.modules),
-                  "meta": [meta, lmeta]}))
+                  "meta": [meta, lmeta, bmeta]}))
 """
 
 
@@ -1835,24 +1869,30 @@ def served_alike(torch, want, got, what):
     return err
 
 
-def time_forwards(torch, forwards, clouds, iters):
-    """Seconds per batch of each of ``forwards`` (name -> callable) on
-    ``clouds``, in turns (a, b, b, a), each over ``iters`` batches after a
-    warm-up call, and the host's seconds to queue one call (the median of
-    ``ENQUEUE_REPS``, each behind a sleep kernel that holds the stream, so
-    the call only queues); returns name -> [two timings], name -> [two
-    queueing times]."""
-    names = list(forwards)
-    out = {name: [] for name in names}
-    queue = {name: [] for name in names}
-    for name in names + names[::-1]:
-        forwards[name](clouds)
+def in_turns(torch, fns, arg, iters):
+    """Seconds per call of each of ``fns`` (name -> callable) on ``arg``, in
+    turns (a, b, b, a), each over ``iters`` calls after a warm-up call."""
+    out = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        fns[name](arg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
-            forwards[name](clouds)
+            fns[name](arg)
         torch.cuda.synchronize()
         out[name].append((time.perf_counter() - t0) / iters)
+    return out
+
+
+def time_forwards(torch, forwards, clouds, iters):
+    """Seconds per batch of each of ``forwards`` (name -> callable) on
+    ``clouds``, in turns (``in_turns``), and the host's seconds to queue one
+    call (the median of ``ENQUEUE_REPS``, each behind a sleep kernel that
+    holds the stream, so the call only queues), twice per forward; returns
+    name -> [two timings], name -> [two queueing times]."""
+    out = in_turns(torch, forwards, clouds, iters)
+    queue = {name: [] for name in forwards}
+    for name in list(forwards) * 2:
         reps = []
         for _ in range(ENQUEUE_REPS):
             torch.cuda._sleep(4 * SLEEP_CYCLES)
@@ -1932,6 +1972,9 @@ def phase_deploy(torch, mods, records, dev):
                                          str(batch), "--with_local")
                 written, export_s = written + paths, export_s + secs
                 if fresh is None:
+                    (bf16_path,), bf16_s = export_cli(os.path.join(out, "bf16"), "--model_type", "patch_aug_net",
+                                                      "--weight", pth, "--batch_sizes", str(batch), "--precision",
+                                                      "bfloat16")
                     fresh = subprocess.Popen([sys.executable, "-c", SERVE_SCRIPT, ROOT, out, str(batch)],
                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             check_launches(read_counts(mods, records), {}, "export (traced, no launch)")
@@ -1944,9 +1987,12 @@ def phase_deploy(torch, mods, records, dev):
         if fresh.returncode != 0:
             raise AssertionError(f"the fresh serving process failed:\n{stderr[-4000:]}")
         report = json.loads(stdout.strip().splitlines()[-1])
-        if report["models_imported"] or report["matmul_tf32"] or report["cudnn_tf32"]:
+        if report["models_imported"] or report["matmul_tf32"] or report["cudnn_tf32"] or report["bf16_reduction"]:
             raise AssertionError(f"fresh serving process: models imported {report['models_imported']}, TF32 "
-                                 f"matmul {report['matmul_tf32']}, cuDNN {report['cudnn_tf32']}")
+                                 f"matmul {report['matmul_tf32']}, cuDNN {report['cudnn_tf32']}, bf16 reductions "
+                                 f"{report['bf16_reduction']}")
+        if report["meta"][2]["precision"] != "bfloat16":
+            raise AssertionError(f"the bf16 artifact's sidecar says precision {report['meta'][2]['precision']}")
         want = {f"{k}.launches": v for k, v in FORWARD_LAUNCHES.items()}
         for i, call in enumerate(report["calls"]):
             for flavour, counts in call.items():
@@ -1957,7 +2003,10 @@ def phase_deploy(torch, mods, records, dev):
 
         live = load_torch_checkpoint(pth, "patch_aug_net", cfg, get_model("patch_aug_net", cfg))
         forward, local = serving.build_forward_fn(live, dev), serving.build_local_forward_fn(live, dev)
-        errs = []
+        bf16_cfg = dict(cfg, COMPUTE_DTYPE="bfloat16")
+        bf16_forward = serving.build_forward_fn(
+            load_torch_checkpoint(pth, "patch_aug_net", bf16_cfg, get_model("patch_aug_net", bf16_cfg)), dev)
+        errs, bf16_cos = [], 1.0
         for i, (x, got) in enumerate(zip(requests, torch.load(os.path.join(out, "served.pt")))):
             g = forward(x).cpu()
             lg, loc, ci = (t.cpu() for t in local(x))
@@ -1965,6 +2014,17 @@ def phase_deploy(torch, mods, records, dev):
                      served_alike(torch, lg, got["global"], f"artifact local request {i}: global"),
                      served_alike(torch, loc, got["local"], f"artifact local request {i}: local"),
                      served_alike(torch, ci, got["center_idx"], f"artifact local request {i}: centre indices")]
+            b16 = bf16_forward(x).cpu()
+            if got["bf16"].dtype != torch.float32 or not torch.equal(got["bf16"], b16):
+                raise AssertionError(f"bf16 artifact request {i}: not bit-equal to the live bf16 forward (max abs "
+                                     f"difference {(got['bf16'].float() - b16).abs().max().item()})")
+            bf16_cos = min(bf16_cos, torch.nn.functional.cosine_similarity(b16, g, dim=-1).min().item())
+        if bf16_cos < MIN_COSINE:
+            raise AssertionError(f"bf16 artifact: min cosine {bf16_cos} to the f32 artifact's descriptors")
+        measured(f"patch_aug_net bf16 artifact B={B} from the same .pth (export_serving_torch.py --precision "
+                 f"bfloat16), served by the fresh process",
+                 f"export {bf16_s:.2f} s; {REQUESTS} requests: K1 3 and K2 6 per call, bit-equal to the live bf16 "
+                 f"forward, min cosine {bf16_cos:.6f} to the f32 descriptors; bf16 reductions off in the fresh process")
         metas = {os.path.basename(p): json.load(open(p + ".json")) for p in written}
         measured(f"patch_aug_net artifacts from a reference .pth ({', '.join(metas)})",
                  f"export {export_s:.2f} s in all for {len(written)} (each "
@@ -1989,6 +2049,246 @@ def phase_deploy(torch, mods, records, dev):
                                for name, v in secs.items()) + f", {iters} batches each")
     say(f"phase 9 (deployment): {time.perf_counter() - t_phase:.1f} s")
     return deployed
+
+
+def bf16_twin(torch, model_type, cfg, model, dev):
+    """``model_type`` built at ``cfg`` with ``COMPUTE_DTYPE: bfloat16`` on
+    ``model``'s weights (the same f32 tree), on ``dev``, in ``model``'s mode."""
+    from patchaugnet_tpu_torch.models import get_model
+
+    twin = get_model(model_type, dict(cfg, COMPUTE_DTYPE="bfloat16")).to(dev)
+    twin.load_state_dict(model.state_dict())
+    return twin.train(model.training)
+
+
+def peak_gib(torch, dev, fn, arg):
+    """Peak device memory (GiB) of one call of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn(arg)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def all_f32(torch, state):
+    """Whether every parameter, buffer and optimizer tensor of ``state`` is f32."""
+    tensors = [*state.model.parameters(), *state.model.buffers()]
+    tensors += [v for s in state.optimizer.state.values() for v in s.values() if torch.is_tensor(v) and v.dim()]
+    return all(t.dtype == torch.float32 for t in tensors)
+
+
+def precision_serving(torch, mods, records, dev):
+    """Each family at full width (seeded f32 weights) and its bf16 twin on
+    the same weights, at B=32 and B=100: the bf16 descriptors f32, finite,
+    within MIN_COSINE of the f32 forward's; the same kernel launches;
+    PatchAugNet's and PPT-Net's provenance indices equal and FP features
+    f32, MinkLoc3Dv2's tables and maps equal; descriptors/s of both in
+    turns and each forward's peak memory. Returns the launch counts."""
+    from patchaugnet_tpu_torch import configs, serving
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    paths = []
+    gen = torch.Generator(device=dev).manual_seed(40)
+    for i, (family, cfg_name, launches) in enumerate(PRECISION_FAMILIES):
+        cfg = getattr(configs, cfg_name)
+        f32 = seeded_init_(get_model(family, cfg), torch.Generator().manual_seed(41 + i)).to(dev).eval()
+        bf16 = bf16_twin(torch, family, cfg, f32, dev)
+        forwards = {"f32": serving.build_forward_fn(f32, dev), "bf16": serving.build_forward_fn(bf16, dev)}
+        for batch, iters in PRECISION_BATCHES:
+            x = torch.rand(batch, N_POINTS, 3, generator=gen, device=dev)
+            outs, counts = {}, {}
+            for name, model in (("f32", f32), ("bf16", bf16)):
+                reset_counts(mods, records)
+                with torch.inference_mode():
+                    outs[name] = model(x)
+                torch.cuda.synchronize()
+                counts[name] = read_counts(mods, records)
+                check_launches(counts[name], launches, f"{family} {name} forward B={batch}")
+                paths.append(counts[name])
+            d32, d16 = (serving.global_desc(outs[k]) for k in ("f32", "bf16"))
+            if d16.dtype != torch.float32 or d16.shape != d32.shape or not torch.isfinite(d16).all():
+                raise AssertionError(f"{family} bf16 B={batch}: descriptors {d16.dtype} {tuple(d16.shape)}, "
+                                     f"expected finite float32 {tuple(d32.shape)}")
+            cos = torch.nn.functional.cosine_similarity(d16, d32, dim=-1).min().item()
+            if cos < MIN_COSINE:
+                raise AssertionError(f"{family} bf16 B={batch}: min cosine to the f32 forward {cos} < {MIN_COSINE}")
+            text = f"min cosine to the f32 forward {cos:.6f}"
+            if family in PROVENANCE:
+                check_provenance(torch, outs["bf16"], outs["f32"], family, f"{family} bf16 B={batch}")
+                if any(f.dtype != torch.float32 for f in outs["bf16"].fp_features):
+                    raise AssertionError(f"{family} bf16 B={batch}: fp_features are not float32")
+                text += ", provenance indices equal to the f32 forward's, fp_features f32"
+            if family == "minkloc3dv2":
+                with torch.inference_mode():
+                    for (name, a), (_, b) in zip(pyramid_tensors(bf16.pyramid(x)), pyramid_tensors(f32.pyramid(x)),
+                                                 strict=True):
+                        if not torch.equal(a, b):
+                            raise AssertionError(f"minkloc3dv2 bf16 B={batch}: {name} differs from the f32 path's")
+                text += ", every table and kernel map equal to the f32 path's"
+            del outs, d32, d16
+            secs = in_turns(torch, forwards, x, iters)
+            peaks = {name: peak_gib(torch, dev, fn, x) for name, fn in forwards.items()}
+            measured(f"{family} bf16 against f32 serving, B={batch} x {N_POINTS} points, in turns",
+                     f"{text}; launches per forward {counts['bf16']} (f32 {counts['f32']}); "
+                     + "; ".join(f"{name} " + " / ".join(f"{batch / s:.1f}" for s in v) + " descriptors/s ("
+                                 + " / ".join(f"{s * 1e3:.2f}" for s in v) + f" ms per batch, {iters} batches), peak "
+                                 f"memory {peaks[name]:.3f} GiB" for name, v in secs.items()))
+        del f32, bf16, forwards
+    return paths
+
+
+def precision_train(torch, mods, records, dev):
+    """The flagship train step at 72 clouds, bf16 against f32 from the same
+    seeded weights: PRECISION_STEPS bf16 steps, each launching K1 3 and K2
+    6 times, metrics finite, every parameter, statistic and Adam moment
+    f32; ms per step of both in turns and peak memory. MinkLoc3Dv2's bf16
+    SmoothAP step at 16 clouds once. Returns the launch counts."""
+    from patchaugnet_tpu_torch import configs, train
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    cfg = configs.PATCH_AUG_NET_TRAIN
+    cfgs = {"f32": cfg, "bf16": dict(cfg, COMPUTE_DTYPE="bfloat16")}
+    model = seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(45))
+    models = {"f32": model, "bf16": bf16_twin(torch, "patch_aug_net", cfg, model, dev)}
+    states = {k: train.create_train_state(m, cfgs[k], device=dev) for k, m in models.items()}
+    steps = {k: train.build_train_step(s.model, cfgs[k]) for k, s in states.items()}
+    clouds, mask, corr = train_batch(torch, cfg, dev, seed=46)
+    paths, totals = [], []
+    for _ in range(PRECISION_STEPS):
+        reset_counts(mods, records)
+        states["bf16"], metrics = steps["bf16"](states["bf16"], clouds, corr, mask)
+        torch.cuda.synchronize()
+        paths.append(read_counts(mods, records))
+        check_launches(paths[-1], STEP_LAUNCHES, "patch_aug_net bf16 train step")
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"patch_aug_net bf16 train step: metrics {metrics}")
+        totals.append(metrics["total"].item())
+    if not all_f32(torch, states["bf16"]):
+        raise AssertionError("patch_aug_net bf16 train step: a parameter, statistic or Adam moment is not float32")
+
+    def stepper(name):
+        def run(_):
+            states[name], _m = steps[name](states[name], clouds, corr, mask)
+        return run
+
+    runs = {name: stepper(name) for name in states}
+    secs = in_turns(torch, runs, None, PRECISION_STEPS)
+    peaks = {name: peak_gib(torch, dev, fn, None) for name, fn in runs.items()}
+    measured(f"patch_aug_net train step bf16 against f32, {clouds.shape[0]} clouds x {cfg['NUM_POINTS']} points, "
+             f"in turns",
+             f"bf16 totals over {PRECISION_STEPS} checked steps {[round(t, 6) for t in totals]}, K1 3 and K2 6 "
+             f"launches per step, parameters, statistics and Adam moments f32; "
+             + "; ".join(f"{name} " + " / ".join(f"{s * 1e3:.2f}" for s in v) + f" ms per step, peak memory "
+                         f"{peaks[name]:.3f} GiB" for name, v in secs.items()))
+    del states, steps, models, model
+
+    mcfg = configs.MINKLOC3DV2
+    mk = seeded_init_(get_model("minkloc3dv2", dict(mcfg, COMPUTE_DTYPE="bfloat16")), torch.Generator().manual_seed(47))
+    schedule = train.multistep_schedule(mcfg["BASE_LEARNING_RATE"], mcfg.get("scheduler_milestones", [250, 350]),
+                                        1000)
+    step, tx = train.build_smoothap_train_step(mk, schedule, weight_decay=mcfg["WEIGHT_DECAY"], tau1=mcfg["tau1"],
+                                               positives_per_query=mcfg["positives_per_query"])
+    state = train.create_train_state(mk, mcfg, device=dev, tx=tx)
+    clouds, pos, neg = smoothap_batch(torch, dev, seed=48)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    reset_counts(mods, records)
+    t0 = time.perf_counter()
+    state, metrics = step(state, clouds, pos, neg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    paths.append(read_counts(mods, records))
+    check_launches(paths[-1], {}, "minkloc3dv2 bf16 SmoothAP step")
+    if not 0 < metrics["loss"].item() < 1 or not all(torch.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"minkloc3dv2 bf16 SmoothAP step: metrics {metrics}")
+    if not all_f32(torch, state) or all(torch.equal(a, b) for a, b in zip(before, state.model.parameters())):
+        raise AssertionError("minkloc3dv2 bf16 SmoothAP step: a tensor of the state is not float32, or nothing moved")
+    say(f"minkloc3dv2 bf16 SmoothAP step, {clouds.shape[0]} clouds: {ms:.2f} ms (the first step: cuDNN and cuBLAS "
+        f"pick their kernels), metrics {({k: round(v.item(), 6) for k, v in metrics.items()})}, every tensor of "
+        f"the state f32, no kernel launch")
+    return paths
+
+
+def precision_remat(torch, mods, records, dev):
+    """The flagship step with ``REMAT`` at 72 clouds against the plain step,
+    each from a deep copy of one state, both under
+    ``torch.use_deterministic_algorithms`` (the gathers' backward adds with
+    atomics, in another order on each run: two plain steps alone differ by
+    up to 2 lr in the parameters whose gradient is rounding noise, which
+    Adam's first update moves by lr times its sign): the total within
+    REMAT_RTOL, every parameter within REMAT_ATOL, the running statistics
+    equal (updated once: each moved), K1 and K2 launching twice as often
+    (the recomputed forward). Then, in the default mode, ms per step of
+    both in turns and each step's peak memory. Returns the launch counts."""
+    from patchaugnet_tpu_torch import configs, train
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    cfg = configs.PATCH_AUG_NET_TRAIN
+    cfgs = {"plain": cfg, "remat": dict(cfg, REMAT=True)}
+    state = train.create_train_state(seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(49)),
+                                     cfg, device=dev)
+    stats0 = [b.clone() for b in state.model.buffers()]
+    clouds, mask, corr = train_batch(torch, cfg, dev, seed=50)
+    runs, paths = {}, []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, launches in (("plain", STEP_LAUNCHES), ("remat", {k: 2 * v for k, v in STEP_LAUNCHES.items()})):
+            s = copy.deepcopy(state)
+            reset_counts(mods, records)
+            s, metrics = train.build_train_step(s.model, cfgs[name])(s, clouds, corr, mask)
+            torch.cuda.synchronize()
+            paths.append(read_counts(mods, records))
+            check_launches(paths[-1], launches, f"patch_aug_net {name} train step")
+            runs[name] = (metrics["total"].item(), [p.detach() for p in s.model.parameters()], list(s.model.buffers()))
+            del s
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (t_plain, p_plain, b_plain), (t_remat, p_remat, b_remat) = runs.values()
+    rel = abs(t_remat - t_plain) / abs(t_plain)
+    param_err = max((a - b).abs().max().item() for a, b in zip(p_remat, p_plain))
+    if rel > REMAT_RTOL or param_err > REMAT_ATOL:
+        raise AssertionError(f"REMAT step: total rel err {rel}, parameters max abs err {param_err} against the plain "
+                             f"step")
+    if not all(torch.equal(a, b) for a, b in zip(b_remat, b_plain)) or any(
+            torch.equal(a, b) for a, b in zip(b_remat, stats0)):
+        raise AssertionError("REMAT step: the running statistics differ from the plain step's, or did not move")
+    del runs, p_plain, p_remat, b_plain, b_remat
+
+    states = {name: copy.deepcopy(state) for name in cfgs}
+    steps = {name: train.build_train_step(states[name].model, c) for name, c in cfgs.items()}
+
+    def stepper(name):
+        def run(_):
+            states[name], _m = steps[name](states[name], clouds, corr, mask)
+        return run
+
+    fns = {name: stepper(name) for name in cfgs}
+    secs = in_turns(torch, fns, None, PRECISION_STEPS)
+    peaks = {name: peak_gib(torch, dev, fn, None) for name, fn in fns.items()}
+    measured(f"patch_aug_net train step with REMAT against the plain step, {clouds.shape[0]} clouds",
+             f"one step each from a copy of one state, deterministic algorithms: total rel err {rel:.3g}, parameters "
+             f"max abs err {param_err:.3g}, running statistics equal (updated once); launches {paths[1]} (plain "
+             f"{paths[0]}); then in turns: "
+             + "; ".join(f"{name} " + " / ".join(f"{x * 1e3:.2f}" for x in v) + f" ms per step, peak memory "
+                         f"{peaks[name]:.3f} GiB" for name, v in secs.items()))
+    return paths
+
+
+def phase_precision(torch, mods, records, dev):
+    """Mixed precision (``COMPUTE_DTYPE: bfloat16``) and ``REMAT`` at full
+    width: serving of the four families, the bf16 train steps, the REMAT
+    step. (The bf16 artifact is served by phase 9's fresh process.)
+    Returns every run's launch counts."""
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        raise AssertionError("cuBLAS may reduce bf16 products in bf16: serving.full_f32_products did not run")
+    paths = precision_serving(torch, mods, records, dev)
+    paths += precision_train(torch, mods, records, dev)
+    paths += precision_remat(torch, mods, records, dev)
+    say(f"phase 10 (precision): {time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 def main():
@@ -2019,15 +2319,17 @@ def main():
     family_counts = phase_families(torch, ops, mods, records, dev)
     minkloc_counts = phase_minkloc(torch, mods, records, dev)
     deploy_counts = phase_deploy(torch, mods, records, dev)
+    precision_counts = phase_precision(torch, mods, records, dev)
 
     # each kernel's launches on its paths: K1-K3 serving, K6 emd_loss, K4
     # the row-chunked auction, K1 and K2 the train step and its centres,
     # the CLIs' epoch, eval and refresh, and PPT-Net's and PointNetVLAD's
-    # serving, train steps and CLIs, MinkLoc3Dv2's (none), and the
-    # deployment's artifacts, in the fresh serving process and here (each
-    # run counts only its own kernels)
+    # serving, train steps and CLIs, MinkLoc3Dv2's (none), the
+    # deployment's artifacts, in the fresh serving process and here, and
+    # the bf16 forwards and steps and the REMAT step (each run counts only
+    # its own kernels)
     paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts, *cli_counts, *family_counts,
-             *minkloc_counts, *deploy_counts)
+             *minkloc_counts, *deploy_counts, *precision_counts)
     launches = {name: sum(counts.get(name, 0) for counts in paths) for name in serving_counts}
     # K5 (``topk_extract_pair``) is K3's function by K3's kernel, on no path
     # (the JAX package dispatches it nowhere): its line repeats K3's times

@@ -14,9 +14,10 @@ it exits with a message.
 It evaluates ``patch_aug_net``, ``pptnet``, ``pptnet_l2_norm``,
 ``pointnet_vlad`` and ``minkloc3dv2``; a model without local descriptors
 (PointNetVLAD, MinkLoc3Dv2) takes the global forward where the
-descriptor store would take the local one. Not ported, each refused with
-the ROADMAP item that brings it: ``--devices`` above 1 (A11),
-``--precision bfloat16`` (A3). The JAX package's orbax checkpoint
+descriptor store would take the local one. ``--precision bfloat16`` runs
+the forward at that compute dtype (``COMPUTE_DTYPE``) on the same f32
+weights. Not ported, refused with the ROADMAP item that brings it:
+``--devices`` above 1 (A11). The JAX package's orbax checkpoint
 directories are refused for good (ROADMAP C): the card's machine has
 neither JAX nor orbax, and ``compat.load_jax_variables`` carries JAX
 weights as numpy.
@@ -28,6 +29,7 @@ Usage:
   python evaluate_torch.py --model_type patch_aug_net --dataset synthetic   # random init smoke
   python evaluate_torch.py --model_type pointnet_vlad --dataset synthetic
   python evaluate_torch.py --model_type minkloc3dv2 --dataset synthetic
+  python evaluate_torch.py --model_type patch_aug_net --dataset synthetic --precision bfloat16
 """
 import argparse
 import os
@@ -71,7 +73,7 @@ def get_args(argv=None):
                    help="devices for descriptor extraction (only 1 is ported)")
     p.add_argument("--precision", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="compute dtype of the forward (only float32 is ported)")
+                   help="compute dtype of the forward (COMPUTE_DTYPE); checkpoints are precision-agnostic")
     return p.parse_args(argv)
 
 
@@ -79,13 +81,19 @@ def refuse_unported(args):
     """Raise ``NotImplementedError`` for what the port does not have yet."""
     if args.devices > 1:
         raise NotImplementedError("--devices above 1: sharded eval is not ported yet (ROADMAP A11)")
-    if args.precision != "float32":
-        raise NotImplementedError("--precision bfloat16 is not ported yet (ROADMAP A3, COMPUTE_DTYPE)")
     if args.weight and os.path.isdir(args.weight):
         raise NotImplementedError(
             f"--weight {args.weight}: orbax checkpoint directories of the JAX package are not read (ROADMAP C): "
             f"the card's machine has neither JAX nor orbax; carry JAX weights as numpy with "
             f"compat.load_jax_variables, or pass a reference .pth or a checkpoint of train_torch.py")
+
+
+def set_precision(cfg, precision):
+    """``--precision`` into the config, as ``evaluate.py`` does: any but
+    float32 (the default, which leaves the config's own key) sets
+    ``COMPUTE_DTYPE``."""
+    if precision != "float32":
+        cfg["COMPUTE_DTYPE"] = precision
 
 
 def load_state(model_type, cfg, weight, device):
@@ -141,6 +149,7 @@ def main(argv=None):
     cfg = load_config(args.config or CONFIG_TABLE[args.model_type])
     cfg["model_type"] = args.model_type
     cfg["dataset"] = args.dataset
+    set_precision(cfg, args.precision)
 
     logger = get_logger(os.path.join(args.exp_dir, args.model_type, "eval"))
     logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))

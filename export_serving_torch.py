@@ -16,11 +16,14 @@ kernels and the file:
 It runs on the card (``--platform gpu``, the default; without a CUDA
 device it exits with a message), or on the CPU with ``--platform cpu``.
 An artifact runs on the device it was exported on: export on the serving
-card.
+card. ``--precision bfloat16`` exports the forward at that compute dtype
+(``COMPUTE_DTYPE``; f32 weights, f32 descriptors), and the sidecar's
+``precision`` says so.
 
 Usage:
   python export_serving_torch.py --model_type patch_aug_net \\
-      --weight ref_train_epoch_29_end.pth --out exp/serving --batch_sizes 32 100 [--with_local]
+      --weight ref_train_epoch_29_end.pth --out exp/serving --batch_sizes 32 100 [--with_local] \
+      [--precision bfloat16]
 """
 import argparse
 import os
@@ -42,7 +45,7 @@ def get_args(argv=None):
     p.add_argument("--batch_sizes", type=int, nargs="+", default=[32])
     p.add_argument("--n_points", type=int, default=None, help="override the config NUM_POINTS")
     p.add_argument("--precision", type=str, default="float32", choices=["float32", "bfloat16"],
-                   help="compute dtype of the forward (only float32 is ported)")
+                   help="compute dtype of the forward (COMPUTE_DTYPE)")
     p.add_argument("--with_local", action="store_true",
                    help="also export the (global, local, centre indices) artifact for the rerank store")
     p.add_argument("--platform", type=str, default="gpu", choices=["gpu", "cpu"],
@@ -56,16 +59,15 @@ def main(argv=None):
     from patchaugnet_tpu_torch.serving import platform_device
 
     device = platform_device(args.platform)
-    if args.precision != "float32":
-        raise NotImplementedError("--precision bfloat16 is not ported yet (ROADMAP A3, COMPUTE_DTYPE)")
 
     from patchaugnet_tpu_torch import serving
     from patchaugnet_tpu_torch.configs import load_config
 
-    from evaluate_torch import load_state
+    from evaluate_torch import load_state, set_precision
 
     cfg = load_config(args.config or CONFIG_TABLE[args.model_type])
     cfg["model_type"] = args.model_type
+    set_precision(cfg, args.precision)
     model = load_state(args.model_type, cfg, args.weight, device).model
     if not args.weight:
         print("no --weight: exporting a randomly initialised model")

@@ -7,6 +7,7 @@ from typing import Any, Dict
 
 from torch import nn
 
+from ..nn.core import compute_dtype
 from .patch_aug_net import PatchAugNet, PatchAugNetOutput, PatchData
 from .minkloc3dv2 import MinkLoc3Dv2, build_minkloc
 from .pointnet_vlad import PointNetFeat, PointNetVLAD
@@ -20,9 +21,7 @@ def get_model(model_type: str, param: Dict[str, Any]) -> nn.Module:
     if model_type == "pptnet_l2_norm":
         return PPTNet(param=param, use_normalize=True)
     if model_type == "pointnet_vlad":
-        if param.get("COMPUTE_DTYPE") is not None:
-            raise NotImplementedError(f"COMPUTE_DTYPE={param['COMPUTE_DTYPE']!r} is not ported; leave it unset")
-        return PointNetVLAD(output_dim=param["FEATURE_OUTPUT_DIM"])
+        return PointNetVLAD(output_dim=param["FEATURE_OUTPUT_DIM"], compute_dtype=compute_dtype(param))
     if model_type == "patch_aug_net":
         return PatchAugNet(param=param, use_a2a_recon=param.get("use_patch_recon", True))
     if model_type == "minkloc3dv2":

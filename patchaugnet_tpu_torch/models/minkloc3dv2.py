@@ -29,7 +29,15 @@ feeds torch the kernel transposed to ``(Cout, Cin, k, k, k)``, and the
 transposed conv feeds it flipped on the three spatial axes (flax's
 ``ConvTranspose`` puts ``K[1 - q]`` at output ``2p + q``).
 
-``COMPUTE_DTYPE`` bf16 is not ported (ROADMAP A3): it raises.
+``COMPUTE_DTYPE`` (``"bfloat16"``) runs the trunk at that dtype, as the
+JAX package does: every conv's operands are cast to it and its products
+accumulate in f32 (cuDNN's ``conv3d`` on the dense grid, the im2col
+product on the tables); the masked BatchNorm and ECA's channel means run
+in f32 and return the feature dtype; the quantization, the tables and the
+kernel maps are the f32 path's; pooling and the descriptor are f32. The
+dense trunk starts at conv0 (the occupancy grid cast to the dtype), the
+sparse one after conv0, whose gather-free occupancy product stays f32, as
+in ``minkloc_sparse.py`` of the JAX package.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.core import BN_EPS, BN_MOMENTUM, BatchNorm, l2_normalize
+from ..nn.core import BN_EPS, BatchNorm, compute_dtype, l2_normalize
 from ..nn.vlad import NetVLADLoupe
 from . import minkloc_sparse as ms
 
@@ -94,22 +102,22 @@ class MaskedBatchNorm(BatchNorm):
     biased variance as a second pass, over every stored site of the batch
     (count clamped to 1); ``running = 0.9 running + 0.1 batch``. Output
     ``((x - mean) * rsqrt(var + eps) * scale + bias) * mask``, zero at
-    empty sites. (Parameter names are :class:`BatchNorm`'s, so the
-    converter and the initialisers take it as one.)"""
+    empty sites, computed in f32 and returned at ``x``'s dtype.
+    (Parameter names are :class:`BatchNorm`'s, so the converter and the
+    initialisers take it as one.)"""
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        mf = mask[..., None].to(x.dtype)
+        xf = x.to(torch.float32)
+        mf = mask[..., None].to(torch.float32)
         if self.training:
             red = tuple(range(x.dim() - 1))
             cnt = mf.sum().clamp_min(1.0)
-            mean = (x * mf).sum(red) / cnt
-            var = ((x - mean) ** 2 * mf).sum(red) / cnt
-            with torch.no_grad():
-                self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
-                self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
+            mean = (xf * mf).sum(red) / cnt
+            var = ((xf - mean) ** 2 * mf).sum(red) / cnt
+            self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
-        return ((x - mean) * torch.rsqrt(var + BN_EPS) * self.weight + self.bias) * mf
+        return (((xf - mean) * torch.rsqrt(var + BN_EPS) * self.weight + self.bias) * mf).to(x.dtype)
 
 
 class VoxelConv(nn.Module):
@@ -129,14 +137,15 @@ class VoxelConv(nn.Module):
                 feats_are_mask: bool = False) -> torch.Tensor:
         if x.dim() == 3:
             return ms.sparse_conv(x, self.kernel, src, feats_are_mask)
-        k, s = self.kernel.shape[0], self.stride
+        w = self.kernel.to(x.dtype)
+        k, s = w.shape[0], self.stride
         if k == 1:
-            return x @ self.kernel.reshape(self.kernel.shape[3], -1)
+            return x @ w.reshape(w.shape[3], -1)
         pads = []
         for n in reversed(x.shape[1:4]):                  # F.pad takes the last axis first
             total = max((-(-n // s) - 1) * s + k - n, 0)
             pads += [total // 2, total - total // 2]
-        y = F.conv3d(F.pad(x.permute(0, 4, 1, 2, 3), pads), self.kernel.permute(4, 3, 0, 1, 2), stride=s)
+        y = F.conv3d(F.pad(x.permute(0, 4, 1, 2, 3), pads), w.permute(4, 3, 0, 1, 2), stride=s)
         return y.permute(0, 2, 3, 4, 1)
 
 
@@ -154,7 +163,7 @@ class VoxelTConv(nn.Module):
     def forward(self, x: torch.Tensor, up=None) -> torch.Tensor:
         if x.dim() == 3:
             return ms.sparse_tconv(x, self.kernel, *up)
-        w = self.kernel.flip(0, 1, 2).permute(3, 4, 0, 1, 2)
+        w = self.kernel.to(x.dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
         return F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w, stride=2).permute(0, 2, 3, 4, 1)
 
 
@@ -186,7 +195,8 @@ class ECAConv(nn.Module):
 class ECALayer(nn.Module):
     """Efficient channel attention (eca_block.py:12-35): the channel means
     over the occupied sites, a 1-d conv across channels (kernel 3 at 32
-    and 64 channels, 5 at 128), a sigmoid gate."""
+    and 64 channels, 5 at 128), a sigmoid gate. The means, the conv and
+    the gate are f32; the gate is cast to ``x``'s dtype."""
 
     def __init__(self, channels: int, gamma: int = 2, b: int = 1):
         super().__init__()
@@ -195,9 +205,9 @@ class ECALayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         red = tuple(range(1, x.dim() - 1))
-        m = mask[..., None].to(x.dtype)
-        y = (x * m).sum(red) / m.sum(red).clamp_min(1.0)             # (B, C)
-        gate = torch.sigmoid(self.conv(y))
+        m = mask[..., None].to(torch.float32)
+        y = (x.to(torch.float32) * m).sum(red) / m.sum(red).clamp_min(1.0)             # (B, C)
+        gate = torch.sigmoid(self.conv(y)).to(x.dtype)
         return x * gate.reshape(gate.shape[0], *([1] * (x.dim() - 2)), -1)
 
 
@@ -249,12 +259,16 @@ class MinkFPN(nn.Module):
     occupancy grid ``(B, G, G, G, 1)`` and ``pyramid`` None. Sparse:
     ``pyramid`` is ``minkloc_sparse.build_pyramid``'s, and ``x`` None
     (the occupancy indicator, conv0's gather-free path) or level-0
-    features ``(B, V, Cin)``. Returns the top-down output and its mask.
+    features ``(B, V, Cin)``. Returns the top-down output and its mask,
+    at the compute ``dtype`` (None: f32): the dense trunk casts its input
+    to it before conv0, the sparse one conv0's output.
     """
 
     def __init__(self, out_channels: int, planes: Sequence[int] = (32, 64, 64), layers: Sequence[int] = (1, 1, 1),
-                 num_top_down: int = 1, conv0_kernel_size: int = 5, block: str = "ECABasicBlock", in_channels: int = 1):
+                 num_top_down: int = 1, conv0_kernel_size: int = 5, block: str = "ECABasicBlock", in_channels: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.num_bottom_up, self.num_top_down, self.layers = len(layers), num_top_down, tuple(layers)
         self.conv0 = ConvBN(in_channels, planes[0], kernel=conv0_kernel_size)
         c = planes[0]
@@ -280,7 +294,12 @@ class MinkFPN(nn.Module):
         feats_are_mask = x is None
         if feats_are_mask:
             x = masks[0][..., None].float()
+        dt = self.compute_dtype
+        if dt is not None and pyramid is None:
+            x = x.to(dt)
         x = torch.relu(self.conv0(x, None if pyramid is None else pyramid.conv0_routes, masks[0], feats_are_mask))
+        if dt is not None:
+            x = x.to(dt)
         feature_maps = [x] if self.num_top_down == self.num_bottom_up else []
         for ndx, n_layers in enumerate(self.layers):
             x = torch.relu(getattr(self, f"down{ndx}")(x, maps("down_routes", ndx), masks[ndx + 1]))
@@ -336,7 +355,8 @@ class MinkLoc3Dv2(nn.Module):
     """``(B, N, 3) -> (B, output_dim)`` global descriptor, on the sparse
     voxel tables (``backend="sparse"``) or the dense grid
     (``backend="dense"``, ``grid_size`` cells per axis for cartesian
-    coordinates, ``polar_grid`` for polar ones)."""
+    coordinates, ``polar_grid`` for polar ones), its trunk at the
+    ``compute_dtype`` (None: f32), the descriptor f32."""
 
     def __init__(self, backend: str = "sparse", feature_size: int = 256, output_dim: int = 256,
                  planes: Sequence[int] = (64, 128, 64, 32), layers: Sequence[int] = (1, 1, 1, 1),
@@ -344,7 +364,7 @@ class MinkLoc3Dv2(nn.Module):
                  pooling: str = "GeM", coordinates: str = "cartesian", quantization_step: Any = 0.01,
                  extent: float = 1.0, polar_max_dist: float = 1.5, level_capacity: Optional[Sequence[int]] = None,
                  grid_size: int = 48, polar_grid: Tuple[int, int, int] = (64, 32, 16),
-                 normalize_embeddings: bool = False):
+                 normalize_embeddings: bool = False, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if backend not in ("sparse", "dense"):
             raise ValueError(f"backend: 'sparse' or 'dense', got {backend!r}")
@@ -356,7 +376,8 @@ class MinkLoc3Dv2(nn.Module):
         factor = 2 ** len(layers)
         if backend == "dense" and any(d % factor for d in self.grid_dims):
             raise ValueError(f"grid dims {self.grid_dims} must divide by 2^len(layers)={factor} for the FPN")
-        self.backbone = MinkFPN(feature_size, planes, layers, num_top_down, conv0_kernel_size, block)
+        self.backbone = MinkFPN(feature_size, planes, layers, num_top_down, conv0_kernel_size, block,
+                                dtype=compute_dtype)
         self.pooling = MaskedPooling(pooling, feature_size, output_dim)
 
     def quantize(self, points: torch.Tensor):
@@ -391,7 +412,7 @@ class MinkLoc3Dv2(nn.Module):
                 raise ValueError("return_diagnostics: the dense backend keeps no capacity")
             grid, mask = self.voxelize(points)
             x, out_mask = self.backbone(grid, dense_masks(mask, self.backbone.num_bottom_up))
-        out = self.pooling(x, out_mask)
+        out = self.pooling(x.to(torch.float32), out_mask)
         if self.normalize_embeddings:
             out = l2_normalize(out, dim=-1)
         if return_diagnostics:
@@ -420,10 +441,8 @@ def build_minkloc(param: Dict[str, Any]) -> MinkLoc3Dv2:
     JAX ``build_minkloc``: the sparse backend by default, at the exact
     ``quantization_step``; the dense one when ``backend: dense`` is set or
     a ``grid_size`` is given (else sized by :func:`grid_size_for_step`
-    under ``max_grid_size``)."""
-    dtype = param.get("COMPUTE_DTYPE", param.get("compute_dtype"))
-    if dtype is not None:
-        raise NotImplementedError(f"COMPUTE_DTYPE={dtype!r} is not ported (ROADMAP A3); leave it unset")
+    under ``max_grid_size``); the trunk at ``COMPUTE_DTYPE`` (or
+    ``compute_dtype``)."""
     layers = tuple(param.get("layers", (1, 1, 1, 1)))
     grid_size = param.get("grid_size")
     backend = param.get("backend") or ("dense" if grid_size is not None else "sparse")
@@ -449,4 +468,5 @@ def build_minkloc(param: Dict[str, Any]) -> MinkLoc3Dv2:
         level_capacity=param.get("level_capacity"),
         grid_size=grid_size or 48,
         normalize_embeddings=param.get("normalize_embeddings", False),
+        compute_dtype=compute_dtype(param),
     )

@@ -311,7 +311,9 @@ def sparse_conv(feats: torch.Tensor, kernel: torch.Tensor, src: Optional[torch.T
     Cin, Cout)`` over the map ``src (B, Vout, k^3)`` (None for k=1: the
     site itself). ``feats_are_mask``: the features are the occupancy
     (Cin = 1, 1.0 on every stored voxel), so the im2col is the tap
-    validity ``src != Vin`` and nothing is gathered."""
+    validity ``src != Vin`` and nothing is gathered. The kernel is cast to
+    the features' dtype; the products accumulate in f32 and come out at it."""
+    kernel = kernel.to(feats.dtype)
     k, cin, cout = kernel.shape[0], kernel.shape[3], kernel.shape[4]
     if k == 1:
         return feats @ kernel.reshape(cin, cout)
@@ -335,9 +337,10 @@ def sparse_tconv(coarse: torch.Tensor, kernel: torch.Tensor, up_idx: torch.Tenso
                  up_valid: torch.Tensor) -> torch.Tensor:
     """Transposed conv (k=2, s=2) onto the fine table: each fine site's
     parent row through one ``Cin -> 8 Cout`` product, the valid slot
-    kept."""
+    kept (at most one per site, so the masked sum adds zeros only), at the
+    features' dtype."""
     cin, cout = kernel.shape[3], kernel.shape[4]
-    w = kernel.reshape(8, cin, cout).permute(1, 0, 2).reshape(cin, 8 * cout)
+    w = kernel.to(coarse.dtype).reshape(8, cin, cout).permute(1, 0, 2).reshape(cin, 8 * cout)
     parent = gather(coarse, up_idx[..., 0])                  # (B, V, Cin)
     b, v, _ = parent.shape
     outs = []

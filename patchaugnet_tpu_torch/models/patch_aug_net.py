@@ -7,7 +7,14 @@ SharedMLP), the spatial-pyramid NetVLAD head (APFA2 by default), and the
 patch branch of the train step (``with_patches``): the level-1 origin
 patches, the L2-normalised patch features and, with a decoder, the
 reconstructed patches, for all clouds or for the ``patch_rows`` subset.
-``COMPUTE_DTYPE`` and ``KNN_APPROX_RECALL`` are not ported.
+
+``COMPUTE_DTYPE`` (``"bfloat16"``) runs the feature path at that dtype:
+the SharedMLPs, the feature gathers and the VLAD cores' products, with f32
+parameters, accumulation and BatchNorm statistics and normalisation;
+FPS, the kNN and the 3-NN run on the f32 xyz, so every index is the f32
+path's; the descriptor and ``fp_features`` come back f32, so the patch
+branch, its decoder and the losses are f32. ``KNN_APPROX_RECALL`` runs the
+exact kNN (``ops.knn``).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from torch import nn
 
 from .. import ops
 from ..nn import PointNetDecoder, SpatialPyramidNetVLAD, l2_normalize
+from ..nn.core import compute_dtype
 from .backbone import PointNet2FPModule, PointNet2SAModule, index_provenance
 
 # SA output widths (reference patch_aug_net.py:124-132)
@@ -60,27 +68,27 @@ class PatchAugNet(nn.Module):
 
     def __init__(self, param: Dict[str, Any], use_a2a_recon: bool = False):
         super().__init__()
-        for key in ("COMPUTE_DTYPE", "KNN_APPROX_RECALL"):
-            if param.get(key) is not None:
-                raise NotImplementedError(f"{key}={param[key]!r} is not ported; leave it unset")
         sap, knn, dil = param["SAMPLING"], param["KNN"], param.get("KNN_DILATION", 1)
         fs = param["FEATURE_SIZE"]
         self.use_origin_pc_in_fp = param.get("USE_ORIGIN_PC_IN_FP", True)
+        self.compute_dtype = cdt = compute_dtype(param)
 
         in_w = 3
         for i, widths in enumerate(SA_WIDTHS):
-            setattr(self, f"sa{i}", PointNet2SAModule(sap[i], knn[i], in_w, widths, knn_dilation=dil))
+            setattr(self, f"sa{i}", PointNet2SAModule(sap[i], knn[i], in_w, widths, knn_dilation=dil, dtype=cdt,
+                                                      knn_approx_recall=param.get("KNN_APPROX_RECALL")))
             in_w = widths[-1]
         # FP levels (reference patch_aug_net.py:137-139), input = known ++ unknown widths
-        self.fp2 = PointNet2FPModule(SA_WIDTHS[2][-1] + SA_WIDTHS[1][-1], [256, fs[2]])
-        self.fp1 = PointNet2FPModule(fs[2] + SA_WIDTHS[0][-1], [256, fs[1]])
-        self.fp0 = PointNet2FPModule(fs[1] + (3 if self.use_origin_pc_in_fp else 0), [256, 256, fs[0]])
+        self.fp2 = PointNet2FPModule(SA_WIDTHS[2][-1] + SA_WIDTHS[1][-1], [256, fs[2]], cdt)
+        self.fp1 = PointNet2FPModule(fs[2] + SA_WIDTHS[0][-1], [256, fs[1]], cdt)
+        self.fp0 = PointNet2FPModule(fs[1] + (3 if self.use_origin_pc_in_fp else 0), [256, 256, fs[0]], cdt)
         self.aggregation = SpatialPyramidNetVLAD(
             feature_size=fs,
             cluster_size=param["CLUSTER_SIZE"],
             output_dim=param["OUTPUT_DIM"],
             gating=param.get("GATING", False),
             aggregation_type=param.get("AGGREGATION_TYPE", 2),
+            dtype=cdt,
         )
         self.decoder = PointNetDecoder(fs[1], knn[0]) if use_a2a_recon else None
 
@@ -112,6 +120,9 @@ class PatchAugNet(nn.Module):
         # coarse -> fine, as the reference returns them: [128-pt, 1024-pt, 4096-pt]
         fp_features = [l_feats[2], l_feats[1], l_feats[0]]
         desc = self.aggregation(fp_features)
+        if self.compute_dtype is not None:
+            desc = desc.to(torch.float32)
+            fp_features = [f.to(torch.float32) for f in fp_features]
         patch_data = None
         if with_patches:
             patch_data = self._patches(x, center_origin[0], sample_origin[0], fp_features[1], patch_rows)

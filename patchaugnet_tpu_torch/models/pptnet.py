@@ -6,7 +6,10 @@ Port of ``patchaugnet_tpu/models/pptnet.py`` (reference
 self-attention after every SA max-pool, four FP levels, and the
 four-scale PPT spatial-pyramid NetVLAD head. ``use_normalize`` tells the
 ``pptnet`` (un-normalised) and ``pptnet_l2_norm`` model types apart.
-``COMPUTE_DTYPE`` and ``KNN_APPROX_RECALL`` are not ported.
+``COMPUTE_DTYPE`` and ``KNN_APPROX_RECALL`` as in PatchAugNet
+(``models/patch_aug_net.py``): the feature path, ``GroupSA`` included, at
+the compute dtype, the geometry f32, the descriptor and ``fp_features``
+f32; the exact kNN.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 from torch import nn
 
 from ..nn import PPTSpatialPyramidNetVLAD, l2_normalize
+from ..nn.core import compute_dtype
 from .backbone import PointNet2FPModule, PointNet2SAModule, index_provenance
 
 # SA output widths (reference pptnet.py:76-83)
@@ -42,26 +46,26 @@ class PPTNet(nn.Module):
 
     def __init__(self, param: Dict[str, Any], use_normalize: bool = True):
         super().__init__()
-        for key in ("COMPUTE_DTYPE", "KNN_APPROX_RECALL"):
-            if param.get(key) is not None:
-                raise NotImplementedError(f"{key}={param[key]!r} is not ported; leave it unset")
         self.use_normalize = use_normalize
+        self.compute_dtype = cdt = compute_dtype(param)
         sap, knn, fs, gp = param["SAMPLING"], param["KNN"], param["FEATURE_SIZE"], param["GROUP"]
         in_w = 3                                           # level-0 features are the xyz
         for i, widths in enumerate(SA_WIDTHS):
-            setattr(self, f"sa{i}", PointNet2SAModule(sap[i], knn[i], in_w, widths, gp=gp))
+            setattr(self, f"sa{i}", PointNet2SAModule(sap[i], knn[i], in_w, widths, gp=gp, dtype=cdt,
+                                                      knn_approx_recall=param.get("KNN_APPROX_RECALL")))
             in_w = widths[-1]
         # FP levels (reference pptnet.py:85-88), input = known ++ unknown widths;
         # they run from fp3 down to fp0
-        self.fp3 = PointNet2FPModule(SA_WIDTHS[3][-1] + SA_WIDTHS[2][-1], [256, fs[3]])
-        self.fp2 = PointNet2FPModule(fs[3] + SA_WIDTHS[1][-1], [256, fs[2]])
-        self.fp1 = PointNet2FPModule(fs[2] + SA_WIDTHS[0][-1], [256, fs[1]])
-        self.fp0 = PointNet2FPModule(fs[1] + 3, [256, 256, fs[0]])
+        self.fp3 = PointNet2FPModule(SA_WIDTHS[3][-1] + SA_WIDTHS[2][-1], [256, fs[3]], cdt)
+        self.fp2 = PointNet2FPModule(fs[3] + SA_WIDTHS[1][-1], [256, fs[2]], cdt)
+        self.fp1 = PointNet2FPModule(fs[2] + SA_WIDTHS[0][-1], [256, fs[1]], cdt)
+        self.fp0 = PointNet2FPModule(fs[1] + 3, [256, 256, fs[0]], cdt)
         self.aggregation = PPTSpatialPyramidNetVLAD(
             feature_size=fs,
             cluster_size=param["CLUSTER_SIZE"],
             output_dim=param["OUTPUT_DIM"],
             gating=param["GATING"],
+            dtype=cdt,
         )
 
     def forward(self, x: torch.Tensor) -> PPTNetOutput:
@@ -85,4 +89,7 @@ class PPTNet(nn.Module):
         desc = self.aggregation(fp_features)
         if self.use_normalize:
             desc = l2_normalize(desc, dim=-1)
+        if self.compute_dtype is not None:
+            desc = desc.to(torch.float32)
+            fp_features = [f.to(torch.float32) for f in fp_features]
         return PPTNetOutput(desc, fp_features, center_origin)

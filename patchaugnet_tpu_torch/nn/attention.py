@@ -6,15 +6,22 @@ Port of ``patchaugnet_tpu/nn/attention.py``: ``MLPAttention`` and
 ``GroupSA`` (grouped, reference ``SA_Layer``, ``pptnet.py:246-282``) and
 ``SA`` (ungrouped, reference ``SALayer``, ``loupe.py:117-156``), both with
 tied Q/K weights. Sequences are ``(B, L, C)``.
+
+``GroupSA`` takes a compute ``dtype`` (bf16), as the JAX module: its
+input, projections and output are at that dtype, its energy is the
+products of the rounded queries accumulated in f32, the softmax and the
+column normalisation run in f32, and the attention weights are rounded
+to the dtype before they weigh the values (f32 accumulation, one
+rounding).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from .core import BatchNorm, l2_normalize
+from .core import BatchNorm, Dense, l2_normalize
 
 
 class MLPAttention(nn.Module):
@@ -64,19 +71,25 @@ class GroupedDense(nn.Module):
     groups=gp, bias=False)``. The weight is the raw ``kernel`` of shape
     ``(gp, C/gp, C/gp)``, as in the JAX tree (not a ``Linear``, whose weight
     ``compat.jax_params`` transposes); its JAX initialiser is flax's
-    ``lecun_normal``, whose fan-in is ``gp * C/gp = C`` (``init_fan``)."""
+    ``lecun_normal``, whose fan-in is ``gp * C/gp = C`` (``init_fan``).
+    At a compute ``dtype`` the input and kernel are cast to it, and each
+    group's product, accumulated in f32, comes out in it."""
 
-    def __init__(self, channels: int, gp: int):
+    def __init__(self, channels: int, gp: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if channels % gp:
             raise ValueError(f"channels={channels} is not a multiple of gp={gp}")
         self.gp, self.cg = gp, channels // gp
         self.kernel = nn.Parameter(torch.empty(gp, self.cg, self.cg))
         self.init_fan = {"kernel": channels}
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel
+        if self.compute_dtype is not None:
+            x, w = x.to(self.compute_dtype), w.to(self.compute_dtype)
         xg = x.reshape(*x.shape[:-1], self.gp, self.cg)
-        return torch.einsum("...gi,gio->...go", xg, self.kernel).reshape(x.shape)
+        return torch.einsum("...gi,gio->...go", xg, w).reshape(x.shape)
 
 
 def _tied_attention(x: torch.Tensor, xq: torch.Tensor, xv: torch.Tensor, trans_conv: nn.Module,
@@ -84,10 +97,13 @@ def _tied_attention(x: torch.Tensor, xq: torch.Tensor, xv: torch.Tensor, trans_c
     """The reference's attention with tied Q/K: energy ``xq xq^T`` (summed
     over every channel, so over the groups too), a softmax over the last
     axis, then a division by ``1e-9 +`` the sum over the query axis;
-    ``x_r = attn^T v``; ``x + relu(after_norm(trans_conv(x - x_r)))``."""
-    energy = torch.bmm(xq, xq.transpose(1, 2))             # (B, N, N)
+    ``x_r = attn^T v``; ``x + relu(after_norm(trans_conv(x - x_r)))``.
+    Below f32 (``x``, ``xq`` and ``xv`` at one compute dtype) the energy and
+    the softmax are f32 and ``attn`` is rounded to that dtype."""
+    q = xq.to(torch.float32)
+    energy = torch.bmm(q, q.transpose(1, 2))               # (B, N, N)
     attn = torch.softmax(energy, dim=-1)
-    attn = attn / (1e-9 + attn.sum(dim=1, keepdim=True))
+    attn = (attn / (1e-9 + attn.sum(dim=1, keepdim=True))).to(xv.dtype)
     x_r = torch.bmm(attn.transpose(1, 2), xv)               # x_r[j] = sum_i attn[i, j] v[i]
     return x + torch.relu(after_norm(trans_conv(x - x_r)))
 
@@ -95,16 +111,20 @@ def _tied_attention(x: torch.Tensor, xq: torch.Tensor, xv: torch.Tensor, trans_c
 class GroupSA(nn.Module):
     """Grouped self-attention with tied Q/K weights, ``(B, N, C) ->
     (B, N, C)``: the grouped projection ``qk_conv`` serves as both queries
-    and keys (the reference ties ``q_conv.weight = k_conv.weight``)."""
+    and keys (the reference ties ``q_conv.weight = k_conv.weight``). At a
+    compute ``dtype`` the input is cast to it and so is the output."""
 
-    def __init__(self, channels: int, gp: int):
+    def __init__(self, channels: int, gp: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.qk_conv = GroupedDense(channels, gp)
-        self.v_conv = nn.Linear(channels, channels)
-        self.trans_conv = nn.Linear(channels, channels)
+        self.qk_conv = GroupedDense(channels, gp, dtype)
+        self.v_conv = Dense(channels, channels, dtype=dtype)
+        self.trans_conv = Dense(channels, channels, dtype=dtype)
         self.after_norm = BatchNorm(channels)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         return _tied_attention(x, self.qk_conv(x), self.v_conv(x), self.trans_conv, self.after_norm)
 
 

@@ -6,16 +6,72 @@ reference's 1x1 ``Conv2d`` over ``(B, C, M, K)``), with no bias before a
 BatchNorm. Attribute names follow the JAX variable tree (``layer{i}``,
 ``bn{i}``, ``fc{i}``) so that ``compat.jax_params`` maps weights by walking
 the modules.
+
+Mixed precision (a config's ``COMPUTE_DTYPE``, :func:`compute_dtype`): a
+:class:`Dense` with a ``dtype`` casts its input, weight and bias to it and
+returns that dtype (flax ``nn.Dense(dtype=)``); :class:`BatchNorm` reduces
+its statistics and normalises in f32 whatever its input, and returns the
+input's dtype (flax ``BatchNorm(dtype=)``). Parameters and statistics stay
+f32. With no compute dtype every cast is a no-op.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Any, Iterator, Mapping, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9   # flax's: running = 0.9 * running + 0.1 * batch (torch's momentum 0.1)
+
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+_frozen_running_stats = 0   # > 0 inside frozen_running_stats()
+
+
+def compute_dtype(param: Mapping[str, Any]) -> Optional[torch.dtype]:
+    """The feature path's dtype of a model config: its ``COMPUTE_DTYPE``
+    (MinkLoc3Dv2's flat configs may say ``compute_dtype``) by name,
+    ``"bfloat16"``, ``"float16"`` or ``"float32"``; ``None`` (the key
+    unset) is the exact f32 path."""
+    value = param.get("COMPUTE_DTYPE", param.get("compute_dtype"))
+    if value is None:
+        return None
+    if value not in _COMPUTE_DTYPES:
+        raise ValueError(f"COMPUTE_DTYPE={value!r}: expected one of {sorted(_COMPUTE_DTYPES)} or None")
+    return _COMPUTE_DTYPES[value]
+
+
+@contextlib.contextmanager
+def frozen_running_stats() -> Iterator[None]:
+    """Train-mode BatchNorms inside leave their running statistics as they
+    are (they still normalise with the batch statistics): the recomputed
+    forward of a rematerialised step must not update them a second time."""
+    global _frozen_running_stats
+    _frozen_running_stats += 1
+    try:
+        yield
+    finally:
+        _frozen_running_stats -= 1
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` at a compute dtype: with ``dtype`` set, the input,
+    weight and bias are cast to it and the product (accumulated in f32)
+    comes out in it, as flax ``nn.Dense(dtype=)``; the parameters stay
+    f32. ``dtype=None`` is ``nn.Linear``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
 
 
 class BatchNorm(nn.Module):
@@ -28,7 +84,9 @@ class BatchNorm(nn.Module):
     reduced over every leading axis as flax does (``use_fast_variance``:
     ``var = max(mean(x^2) - mean(x)^2, 0)``, the biased variance), and
     updates the running statistics in place:
-    ``running = BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch``.
+    ``running = BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch``
+    (not inside :func:`frozen_running_stats`). A lower-precision input is
+    reduced and normalised in f32, and the result cast back to its dtype.
     """
 
     def __init__(self, num_features: int):
@@ -39,27 +97,36 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
         if not self.training:
             mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-            return (x - self.running_mean) * mul + self.bias
+            return ((xf - self.running_mean) * mul + self.bias).to(x.dtype)
         axes = tuple(range(x.dim() - 1))
-        mean = x.mean(axes)
-        var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
-        with torch.no_grad():
-            self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
-            self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
+        mean = xf.mean(axes)
+        var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+        self.update_running(mean, var)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
-        return (x - mean) * mul + self.bias
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """``running = BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch``,
+        in place, unless inside :func:`frozen_running_stats`."""
+        if _frozen_running_stats:
+            return
+        self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
+        self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
 
 
 class SharedMLP(nn.Module):
-    """Stack of Linear + BN + ReLU over the last axis of a tensor of any rank."""
+    """Stack of Linear + BN + ReLU over the last axis of a tensor of any
+    rank, at the compute ``dtype`` (None: f32)."""
 
-    def __init__(self, in_features: int, features: Sequence[int]):
+    def __init__(self, in_features: int, features: Sequence[int], dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.depth = len(features)
         for i, f in enumerate(features):
-            setattr(self, f"layer{i}", nn.Linear(in_features, f, bias=False))
+            setattr(self, f"layer{i}", Dense(in_features, f, bias=False, dtype=dtype))
             setattr(self, f"bn{i}", BatchNorm(f))
             in_features = f
 
@@ -71,16 +138,17 @@ class SharedMLP(nn.Module):
 
 class MLP(nn.Module):
     """FC stack with BN+ReLU after every layer but the last (unless
-    ``final_activation``), reference ``pt_util.FC``."""
+    ``final_activation``), reference ``pt_util.FC``, at the compute
+    ``dtype`` (None: f32)."""
 
     def __init__(self, in_features: int, features: Sequence[int], bn: bool = True,
-                 final_activation: bool = False):
+                 final_activation: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.acts = []
         for i, f in enumerate(features):
             act = i < len(features) - 1 or final_activation
             use_bn = bn and act
-            setattr(self, f"fc{i}", nn.Linear(in_features, f, bias=not use_bn))
+            setattr(self, f"fc{i}", Dense(in_features, f, bias=not use_bn, dtype=dtype))
             if use_bn:
                 setattr(self, f"bn{i}", BatchNorm(f))
             self.acts.append(act)

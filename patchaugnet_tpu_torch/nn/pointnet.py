@@ -54,7 +54,8 @@ class STN3D(nn.Module):
     a BatchNorm when ``use_bn``, then ReLU), a max over the points, fc1 512
     and fc2 256 the same way, then ``fc3`` to ``k * k`` plus the identity.
     The JAX initialiser zeroes ``fc3``'s weight and bias (``zero_init``), so
-    the first transform is the identity.
+    the first transform is the identity. It runs in f32 whatever its input's
+    dtype (the transforms are geometry).
     """
 
     def __init__(self, k: int = 3, use_bn: bool = True):
@@ -70,7 +71,7 @@ class STN3D(nn.Module):
         self.zero_init = ("fc3",)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x
+        h = x.to(torch.float32)
         for name in ("conv1", "conv2", "conv3"):
             h = _dense_bn_relu(self, name, h)
         h = h.amax(dim=1)                                   # (B, 1024)

@@ -11,10 +11,17 @@ channels-last ``(B, N, C)`` point features.
 A raw weight whose JAX initialiser takes another fan than its
 second-to-last axis names it in ``init_fan`` (``nn.seeded_init_``): the
 FC weights of the last two heads have std ``1/sqrt(feature_size)``.
+
+A compute ``dtype`` (bf16) applies to the VLAD cores' two N-sized
+products only: their inputs are rounded to it and the products are
+accumulated and returned in f32 (the JAX einsums'
+``preferred_element_type=float32``), here as f32 products of the rounded
+operands; the softmax, the residual subtraction, the norms and every head
+after the cores stay f32.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -28,20 +35,29 @@ def _flatten_ck(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape[0], -1)
 
 
-class NetVLADBase(nn.Module):
-    """Soft-assignment VLAD: ``(B, N, C) -> (B, C, K)``, intra-normalised over C."""
+def _rounded(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and held in f32 (``t`` itself without a
+    dtype): an f32 product of such operands is the low-precision product
+    with f32 accumulation."""
+    return t if dtype is None else t.to(dtype).to(torch.float32)
 
-    def __init__(self, feature_size: int, cluster_size: int):
+
+class NetVLADBase(nn.Module):
+    """Soft-assignment VLAD: ``(B, N, C) -> (B, C, K)`` in f32, intra-normalised over C."""
+
+    def __init__(self, feature_size: int, cluster_size: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cluster_weights = nn.Parameter(torch.empty(feature_size, cluster_size))
         self.cluster_weights2 = nn.Parameter(torch.empty(1, feature_size, cluster_size))
         self.bn1 = BatchNorm(cluster_size)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        activation = self.bn1(torch.einsum("bnc,ck->bnk", x, self.cluster_weights))
+        xc = _rounded(x, self.compute_dtype)
+        activation = self.bn1(torch.einsum("bnc,ck->bnk", xc, _rounded(self.cluster_weights, self.compute_dtype)))
         activation = torch.softmax(activation, dim=-1)     # (B, N, K)
         a_sum = activation.sum(dim=1, keepdim=True)        # (B, 1, K)
-        vlad = torch.einsum("bnk,bnc->bck", activation, x)
+        vlad = torch.einsum("bnk,bnc->bck", _rounded(activation, self.compute_dtype), xc)
         vlad = vlad - a_sum * self.cluster_weights2        # (B, C, K)
         return l2_normalize(vlad, dim=1)
 
@@ -71,7 +87,7 @@ class SpatialPyramidNetVLAD(nn.Module):
     """Multi-scale VLAD with six aggregation modes (PatchAugNet variant).
 
     Takes per-scale point features ``[(B, N_i, C_i)]`` and returns
-    ``(B, output_dim[0])``.
+    ``(B, output_dim[0])``. ``dtype`` is the VLAD cores'.
     """
 
     def __init__(
@@ -81,6 +97,7 @@ class SpatialPyramidNetVLAD(nn.Module):
         output_dim: Sequence[int],
         gating: bool = False,
         aggregation_type: int = 2,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if aggregation_type not in range(6):
@@ -89,7 +106,7 @@ class SpatialPyramidNetVLAD(nn.Module):
         self.gating = gating
         self.scales = s = len(feature_size)
         for i in range(s):
-            setattr(self, f"vlad{i}", NetVLADBase(feature_size[i], cluster_size[i]))
+            setattr(self, f"vlad{i}", NetVLADBase(feature_size[i], cluster_size[i], dtype))
         sum_k = sum(cluster_size)
         c0, d0 = feature_size[0], output_dim[0]
         if t in (1, 4):
@@ -155,15 +172,15 @@ class PPTSpatialPyramidNetVLAD(nn.Module):
     Each scale's VLAD ``vlad{i}`` flattened channel-major to ``(B, C*K_i)``,
     the scales concatenated, one product with ``hidden_weights`` of shape
     ``(C_0 * sum(K), D_0)``, the BatchNorm ``bn2``, and context gating when
-    ``gating``.
+    ``gating``. ``dtype`` is the VLAD cores'.
     """
 
     def __init__(self, feature_size: Sequence[int], cluster_size: Sequence[int], output_dim: Sequence[int],
-                 gating: bool = True):
+                 gating: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.scales = len(feature_size)
         for i in range(self.scales):
-            setattr(self, f"vlad{i}", NetVLADBase(feature_size[i], cluster_size[i]))
+            setattr(self, f"vlad{i}", NetVLADBase(feature_size[i], cluster_size[i], dtype))
         c0, d0 = feature_size[0], output_dim[0]
         self.hidden_weights = nn.Parameter(torch.empty(c0 * sum(cluster_size), d0))
         self.init_fan = {"hidden_weights": c0}
@@ -184,11 +201,13 @@ class NetVLADLoupe(nn.Module):
     """PointNetVLAD's head, ``(B, N, C) -> (B, output_dim)``: the VLAD
     ``base`` (intra-normalised), a channel-major flatten, a global L2 norm,
     the product with ``hidden1_weights`` of shape ``(K*C, D)``, the
-    BatchNorm ``bn2``, and context gating when ``gating``."""
+    BatchNorm ``bn2``, and context gating when ``gating``. ``dtype`` is the
+    VLAD core's."""
 
-    def __init__(self, feature_size: int, cluster_size: int, output_dim: int, gating: bool = True):
+    def __init__(self, feature_size: int, cluster_size: int, output_dim: int, gating: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.base = NetVLADBase(feature_size, cluster_size)
+        self.base = NetVLADBase(feature_size, cluster_size, dtype)
         self.hidden1_weights = nn.Parameter(torch.empty(cluster_size * feature_size, output_dim))
         self.init_fan = {"hidden1_weights": feature_size}
         self.bn2 = BatchNorm(output_dim)

@@ -8,7 +8,7 @@ int64 for ``index_select``. Callers pass in-range indices.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -100,20 +100,24 @@ def query_and_group_edge(
     *,
     nsample: int,
     knn_dilation: int = 1,
+    approx_recall: Optional[float] = None,
 ) -> GroupedEdgeFeatures:
     """EdgeConv-style kNN query + group (reference ``QueryAndGroup_Edge``).
 
     Grouped xyz are centred on ``new_xyz``; grouped features are centred
     on ``center_features`` when ``nsample > 1``. Output layout is
-    channels-last: ``(b, m, k, 3 + c)``. (The radius query, the
+    channels-last: ``(b, m, k, 3 + c)``, at the features' dtype: below f32
+    the centred xyz are rounded to it (the JAX version concatenates in f32,
+    and the next product rounds the same values). The kNN runs on the f32
+    xyz; ``approx_recall`` as ``ops.knn``. (The radius query, the
     precomputed-index and the xyz-only forms of the JAX version are not
     ported yet.)
     """
-    idx = dilated_knn(xyz, new_xyz, nsample, knn_dilation)
+    idx = dilated_knn(xyz, new_xyz, nsample, knn_dilation, approx_recall=approx_recall)
     o_grouped_xyz = group(xyz, idx)                        # (b, m, k, 3)
     grouped_xyz = o_grouped_xyz - new_xyz[:, :, None, :]
     grouped_feats = group(features, idx)                   # (b, m, k, c)
     if nsample > 1:
         grouped_feats = grouped_feats - center_features[:, :, None, :]
-    new_features = torch.cat([grouped_xyz, grouped_feats], dim=-1)
+    new_features = torch.cat([grouped_xyz.to(grouped_feats.dtype), grouped_feats], dim=-1)
     return GroupedEdgeFeatures(new_features, o_grouped_xyz, idx)

@@ -72,8 +72,11 @@ def knn(
       xyz: ``(b, n, d)`` reference points.
       new_xyz: ``(b, m, d)`` query points (``None`` -> ``xyz``).
       k: number of neighbours.
-      approx_recall: the JAX package's approximate TPU top-k; it has no
-        GPU counterpart yet and raises ``NotImplementedError``.
+      approx_recall: the recall target of the JAX package's approximate
+        top-k (``lax.approx_max_k``, ``KNN_APPROX_RECALL``), in (0, 1].
+        That top-k is approximate on the TPU only: XLA lowers it to the
+        exact top-k on every other backend, so here, as there, the target
+        is checked and the exact kNN runs.
 
     Returns:
       ``(idx, sqdist)``: ``(b, m, k)`` int32 indices sorted by ascending
@@ -89,8 +92,8 @@ def knn(
     contracts.check_features(new_xyz, "new_xyz")
     contracts.check_same_batch(xyz, new_xyz, "xyz", "new_xyz")
     contracts.check_k(k, xyz.shape[-2])
-    if approx_recall is not None:
-        raise NotImplementedError("approximate kNN (lax.approx_max_k) is not ported")
+    if approx_recall is not None and not 0.0 < approx_recall <= 1.0:
+        raise ValueError(f"approx_recall={approx_recall}: a recall target lies in (0, 1]")
     if xyz.shape[-1] != 3:
         return topk_extract(pairwise_sqdist(new_xyz, xyz), k)
     if contracts.check_device(xyz, "xyz") == "cuda":
@@ -164,6 +167,7 @@ def dilated_knn(
     k: int,
     dilation: int = 1,
     generator: Optional[torch.Generator] = None,
+    approx_recall: Optional[float] = None,
 ) -> torch.Tensor:
     """Dilated kNN exactly as the reference's ``QueryAndGroup_Edge``.
 
@@ -172,9 +176,9 @@ def dilated_knn(
     k of the sorted dilated candidates are the plain k nearest, so only k
     neighbours are extracted. Consumers are permutation invariant, so the
     shuffle runs only when a ``generator`` is given (the eval path passes
-    none).
+    none). ``approx_recall`` as :func:`knn`.
     """
-    idx, _ = knn(xyz, new_xyz, k)
+    idx, _ = knn(xyz, new_xyz, k, approx_recall)
     if dilation > 1 and generator is not None:
         perm = torch.randperm(k, generator=generator, device=generator.device)
         idx = idx[..., perm.to(idx.device)]

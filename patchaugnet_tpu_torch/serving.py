@@ -49,7 +49,8 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
     for the CPU. Raises ``RuntimeError`` when CUDA is asked for and absent.
 
-    For CUDA it also switches TF32 off (:func:`full_f32_products`).
+    For CUDA it also switches TF32 and cuBLAS's bf16 reductions off
+    (:func:`full_f32_products`).
     """
     device = torch.device(device)
     if device.type == "cuda":
@@ -62,10 +63,13 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
 def full_f32_products() -> None:
     """Switch TF32 off for matrix products and cuDNN: the port computes in
     full f32, as the JAX CLIs pin f32 matmul precision (low-precision
-    products reorder near-tied retrieval rankings). These are flags of the
-    process, not of a model or an exported program."""
+    products reorder near-tied retrieval rankings). Also switch off cuBLAS's
+    reduced-precision reductions of bf16 products: a bf16 product
+    (``COMPUTE_DTYPE``) accumulates in f32, as XLA's does. These are flags of
+    the process, not of a model or an exported program."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _prepare(model: nn.Module, device) -> torch.device:
@@ -222,9 +226,10 @@ def load_artifact(path: str) -> Tuple[Callable, Dict[str, Any]]:
     another size raises ``ValueError``), on the device the artifact was
     exported on, and runs under ``torch.inference_mode()``; its
     ``program`` attribute is the loaded ``ExportedProgram``. Loading
-    registers the port's kernels and switches TF32 off
+    registers the port's kernels and switches TF32 and bf16 reductions off
     (:func:`full_f32_products`): the flags are not part of the program, and
-    a fresh process would otherwise form the products in TF32."""
+    a fresh process would otherwise form the products in TF32, and reduce
+    a bf16 artifact's products in bf16."""
     from . import ops  # noqa: F401  (registers torch.ops.pan.fps and torch.ops.pan.knn)
 
     full_f32_products()

@@ -10,16 +10,26 @@ back as device tensors.
 Patch inputs (the correspondence tables and the related-cloud mask) are
 built on the host from overlap records and passed as fixed-size tables,
 as in the JAX package.
+
+A model built at a ``COMPUTE_DTYPE`` trains at it: its parameters, the
+optimizer's state and the BatchNorm statistics stay f32, and the losses
+take its f32 outputs. ``REMAT`` recomputes the forward in the backward
+(``torch.utils.checkpoint``, the JAX step's ``jax.checkpoint``): the
+recomputed forward normalises with the batch statistics again and leaves
+the running statistics as the first forward left them.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from .. import losses as L
 from ..losses.patch_contrast import PatchCorrespondences
+from ..nn.core import frozen_running_stats
 from ..ops import farthest_point_sample
 from ..serving import build_forward_fn, build_local_forward_fn, global_desc, resolve_device
 from .state import TrainState
@@ -57,11 +67,18 @@ def _first_true(mask: torch.Tensor, r: int) -> torch.Tensor:
     return sel[:r]
 
 
+def _remat_contexts():
+    """The first forward as it is; the recomputed one with frozen running statistics."""
+    return contextlib.nullcontext(), frozen_running_stats()
+
+
 def make_loss_fn(model: nn.Module, cfg: Dict[str, Any]) -> Callable:
     """``loss_fn(clouds, corr, cloud_mask) -> (total, metrics)`` on the
     model as it stands: in train mode its BatchNorms normalise with the
     batch statistics and update their running statistics in place.
-    ``metrics`` holds each weighted term and ``"total"``.
+    ``metrics`` holds each weighted term and ``"total"``. With ``REMAT``
+    the model's forward keeps none of its activations: the backward runs
+    it again (its kernels launch again), the running statistics frozen.
     """
     batch_size = cfg["TRAIN_BATCH_SIZE"]
     num_pos = cfg["TRAIN_POSITIVES_PER_QUERY"]
@@ -86,10 +103,16 @@ def make_loss_fn(model: nn.Module, cfg: Dict[str, Any]) -> Callable:
     # fixed-size subset of the tuple batch
     max_patch_clouds = cfg.get("A2A_MAX_CLOUDS", batch_size * (1 + num_pos))
 
+    def apply(clouds, **kwargs):
+        if not cfg.get("REMAT", False):
+            return model(clouds, **kwargs)
+        return torch.utils.checkpoint.checkpoint(model, clouds, use_reentrant=False, context_fn=_remat_contexts,
+                                                 **kwargs)
+
     def loss_fn(clouds: torch.Tensor, corr: PatchCorrespondences,
                 cloud_mask: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         if not use_patches:
-            out = model(clouds)
+            out = apply(clouds)
         else:
             total_clouds = clouds.shape[0]
             r = min(max_patch_clouds, total_clouds)
@@ -97,7 +120,7 @@ def make_loss_fn(model: nn.Module, cfg: Dict[str, Any]) -> Callable:
             # the decoder BatchNorms' batch statistics, as in the JAX step
             sel = _first_true(cloud_mask, r)
             sel_valid = torch.arange(r, device=clouds.device) < cloud_mask.sum()
-            out = model(clouds, with_patches=True, patch_rows=sel)
+            out = apply(clouds, with_patches=True, patch_rows=sel)
         q, p, n, o = _split_tuple(global_desc(out), batch_size, num_pos, num_neg)
         metrics = {"place_recognition": pr_loss(q, p, n, o, m1, m2, use_min=use_min, lazy=lazy,
                                                 ignore_zero_loss=ignore_zero)}
@@ -148,12 +171,9 @@ def build_train_step(model: nn.Module, cfg: Dict[str, Any]) -> Callable:
     applies one update to ``state`` in place; a total of 1e-10 or less
     zeroes the gradients (the reference's loss gate,
     train_place_recognition.py:390-392) and the update still runs, as in
-    the JAX step. Metrics are detached device tensors. ``REMAT``
-    (recomputing the forward in the backward) is not ported: a recomputed
-    forward would update the running BatchNorm statistics twice.
+    the JAX step. Metrics are detached device tensors. ``REMAT`` as in
+    :func:`make_loss_fn`.
     """
-    if cfg.get("REMAT", False):
-        raise NotImplementedError("REMAT is not ported: leave it unset")
     if (cfg["model_type"] == "patch_aug_net" and cfg.get("use_patch_recon", False)
             and getattr(model, "decoder", None) is None):
         raise ValueError("use_patch_recon needs a model built with its decoder (use_a2a_recon=True)")

@@ -5,7 +5,13 @@ its auction EMD, goes on the card.
     python3 profile_torch.py [--model M] [--batch 32] [--iters 5] [--table PATH] [--root DIR]
     python3 profile_torch.py --kernels [--model M] [--lanes] [--layouts] [--warps] [--batch 32] [--root DIR]
     python3 profile_torch.py --emd [--table PATH] [--root DIR]
-    python3 profile_torch.py --train [--model M] [--iters 5] [--table PATH] [--root DIR]
+    python3 profile_torch.py --train [--model M] [--iters 5] [--table PATH] [--root DIR] [--remat]
+
+Every form but ``--emd`` and ``--kernels`` takes ``--precision bfloat16``:
+the model at that compute dtype (``COMPUTE_DTYPE``), on the same seeded
+f32 weights. ``--remat`` (with ``--train``) recomputes the forward in the
+backward (``REMAT``); the stages' forward hooks then fire in the
+recomputation too, so each stage's time includes it.
 
 ``--model`` is ``patch_aug_net`` (the default), ``pptnet``,
 ``pptnet_l2_norm``, ``pointnet_vlad`` or ``minkloc3dv2``, each at the
@@ -436,16 +442,17 @@ def print_stages(card, stage_ms, what):
         print(f"[{card}] {what} {parent} rest: {rest:.3f} ms", flush=True)
 
 
-def profile_train(torch, card, dev, iters, table, model_type="patch_aug_net"):
+def profile_train(torch, card, dev, iters, table, model_type="patch_aug_net", overrides=None):
     """The train step at full width: wall per step, its parts' device ms
-    from CUDA events, and the profiler's busy share and top kernels."""
+    from CUDA events, and the profiler's busy share and top kernels.
+    ``overrides`` go into the config (``COMPUTE_DTYPE``, ``REMAT``)."""
     from patchaugnet_tpu_torch import configs, serving, train
     from patchaugnet_tpu_torch.models import get_model
     from patchaugnet_tpu_torch.nn import seeded_init_
     from torch.profiler import ProfilerActivity, profile
 
     _, cfg_name, stages = MODELS[model_type]
-    cfg = dict(getattr(configs, cfg_name), model_type=model_type)
+    cfg = dict(getattr(configs, cfg_name), model_type=model_type, **(overrides or {}))
     stages = stages + (("decoder",) if model_type == "patch_aug_net" else ())
     model = seeded_init_(get_model(model_type, cfg), torch.Generator().manual_seed(5))
     if model_type == "minkloc3dv2":         # the SmoothAP trainer on chip_smoke.py's pair-expanded batch
@@ -470,7 +477,8 @@ def profile_train(torch, card, dev, iters, table, model_type="patch_aug_net"):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"[{card}] {model_type} train step, {clouds.shape[0]} clouds: {wall_ms:.3f} ms per step (host wall), "
+    print(f"[{card}] {model_type} train step {overrides or ''}, {clouds.shape[0]} clouds: {wall_ms:.3f} ms per step "
+          f"(host wall), "
           f"{clouds.shape[0] / wall_ms * 1e3:.1f} clouds/s, peak memory {peak:.3f} GiB", flush=True)
 
     # the parts of the real step, bracketed by CUDA events from hooks: the
@@ -560,7 +568,13 @@ def main():
     parser.add_argument("--model", default="patch_aug_net", choices=sorted(MODELS),
                         help="the model whose forward, kernels or train step to profile")
     parser.add_argument("--root", default=ROOT, help="checkout to import patchaugnet_tpu_torch from")
+    parser.add_argument("--precision", default="float32", choices=["float32", "bfloat16"],
+                        help="the model's compute dtype (COMPUTE_DTYPE) for the forward and --train")
+    parser.add_argument("--remat", action="store_true", help="with --train: recompute the forward in the backward")
     args = parser.parse_args()
+    overrides = {"COMPUTE_DTYPE": args.precision} if args.precision != "float32" else {}
+    if args.remat:
+        overrides["REMAT"] = True
 
     import torch
 
@@ -583,9 +597,10 @@ def main():
     if args.kernels:
         return profile_kernels(torch, card, dev, args.batch, args.lanes, args.layouts, args.warps, args.model)
     if args.train:
-        return profile_train(torch, card, dev, args.iters, args.table, args.model)
+        return profile_train(torch, card, dev, args.iters, args.table, args.model, overrides)
     cfg_name, _, stages = MODELS[args.model]
-    model = seeded_init_(get_model(args.model, getattr(configs, cfg_name)), torch.Generator().manual_seed(0))
+    model = seeded_init_(get_model(args.model, dict(getattr(configs, cfg_name), **overrides)),
+                         torch.Generator().manual_seed(0))
     forward = serving.build_forward_fn(model, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     clouds = torch.rand(args.batch, N_POINTS, 3, generator=gen, device=dev)
@@ -599,7 +614,7 @@ def main():
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    print(f"[{card}] {args.model} B={args.batch}: {wall_ms:.3f} ms per forward (host wall), "
+    print(f"[{card}] {args.model} {args.precision} B={args.batch}: {wall_ms:.3f} ms per forward (host wall), "
           f"{args.batch / wall_ms * 1e3:.1f} descriptors/s, peak memory {peak:.3f} GiB", flush=True)
 
     # stage times: CUDA events around each stage

@@ -182,8 +182,6 @@ def test_train_cli_needs_cuda_or_platform_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags, item", [
     (["--devices", "2"], "A11"),
-    (["--precision", "bfloat16"], "A3"),
-    (["--config", os.path.join(REPO, "configs", "minkloc3dv2.yaml"), "--precision", "bfloat16"], "A3"),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flags, item):
     argv = ["--config", os.path.join(REPO, "configs", "tiny_smoke.yaml"), "--dataset", "synthetic", "--platform", "cpu",
@@ -194,8 +192,7 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, flags, item):
 
 def test_evaluate_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--dataset", "synthetic", "--platform", "cpu", "--exp_dir", str(tmp_path)]
-    for flags, item in ((["--model_type", "minkloc3dv2", "--precision", "bfloat16"], "A3"),
-                        (["--weight", str(tmp_path)], "orbax"), (["--devices", "2"], "A11")):
+    for flags, item in ((["--weight", str(tmp_path)], "orbax"), (["--devices", "2"], "A11")):
         with pytest.raises(NotImplementedError, match=item):
             evaluate_torch.main(base + flags)
 

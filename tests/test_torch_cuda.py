@@ -620,3 +620,34 @@ def test_minkloc_on_card_matches_cpu(device, rng, capacity):
     for a, b in zip(_pyramid_tensors(card), _pyramid_tensors(cpu)):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("model_type, cfg_name", [("patch_aug_net", "PATCH_AUG_NET"), ("pptnet", "PPTNET_ORIGIN"),
+                                                  ("pointnet_vlad", "POINTNET_VLAD"), ("minkloc3dv2", "MINKLOC3DV2")])
+def test_bf16_forward_on_card_matches_f32(device, rng, model_type, cfg_name):
+    """Each family at full width with ``COMPUTE_DTYPE: bfloat16`` on the
+    card, on the f32 model's weights: f32 descriptors within cosine 0.999
+    of the f32 forward's on the card, the same kernel launches, and the
+    same provenance indices (PatchAugNet, PPT-Net)."""
+    from patchaugnet_tpu_torch import configs, serving
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    cfg = getattr(configs, cfg_name)
+    serving.resolve_device(device)                 # TF32 and bf16 reductions off
+    f32 = seeded_init_(get_model(model_type, cfg), torch.Generator().manual_seed(0)).to(device).eval()
+    bf16 = get_model(model_type, dict(cfg, COMPUTE_DTYPE="bfloat16")).to(device).eval()
+    bf16.load_state_dict(f32.state_dict())
+    clouds = torch.from_numpy(rng.rand(4, 4096, 3).astype(np.float32)).to(device)
+    outs, launches = [], []
+    for model in (f32, bf16):
+        fps_ops.launches = knn_ops.launches = 0
+        with torch.inference_mode():
+            outs.append(model(clouds))
+        launches.append((fps_ops.launches, knn_ops.launches))
+    assert launches[0] == launches[1]
+    d32, d16 = (serving.global_desc(o) for o in outs)
+    assert d16.dtype == torch.float32 and torch.isfinite(d16).all()
+    assert torch.nn.functional.cosine_similarity(d16, d32, dim=-1).min().item() >= 0.999
+    for a, b in zip(getattr(outs[0], "center_idx_origin", ()), getattr(outs[1], "center_idx_origin", ())):
+        assert torch.equal(a, b)

@@ -197,7 +197,7 @@ def test_get_model_builds_each_backend():
     """``minkloc3dv2`` at its full-width config: the sparse backend at step
     0.01 and full capacity, 225 cells per axis; ``backend: dense`` and a
     ``grid_size`` give the dense one (48 under the default cap); bf16
-    raises."""
+    builds the same parameters, f32, its trunk at bf16."""
     model = get_model("minkloc3dv2", configs.MINKLOC3DV2)
     assert isinstance(model, MinkLoc3Dv2) and model.backend == "sparse" and model.level_capacity is None
     assert model.quantization_step == 0.01
@@ -206,8 +206,9 @@ def test_get_model_builds_each_backend():
     assert dense.backend == "dense" and dense.grid_dims == (48, 48, 48)
     assert get_model("minkloc3dv2", dict(configs.MINKLOC3DV2, grid_size=32)).grid_dims == (32, 32, 32)
     assert [n for n, _ in dense.named_parameters()] == [n for n, _ in model.named_parameters()]
-    with pytest.raises(NotImplementedError, match="COMPUTE_DTYPE"):
-        get_model("minkloc3dv2", dict(configs.MINKLOC3DV2, COMPUTE_DTYPE="bfloat16"))
+    bf16 = get_model("minkloc3dv2", dict(configs.MINKLOC3DV2, COMPUTE_DTYPE="bfloat16"))
+    assert bf16.backbone.compute_dtype is torch.bfloat16 and model.backbone.compute_dtype is None
+    assert [(n, p.dtype) for n, p in bf16.named_parameters()] == [(n, p.dtype) for n, p in model.named_parameters()]
 
 
 def test_initialisers_fill_minkloc():

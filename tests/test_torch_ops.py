@@ -200,9 +200,14 @@ class TestKNN:
             assert max(-(-k // g) for g in widths) <= knn._MAX_SLOTS == 3
 
     def test_approx_recall_not_ported(self, rng):
+        """No approximate kNN is ported: ``approx_recall`` (the TPU's
+        ``lax.approx_max_k``, exact on every other backend) runs the exact
+        kNN; a target outside (0, 1] raises."""
         x = _t(rng.rand(1, 32, 3).astype(np.float32))
-        with pytest.raises(NotImplementedError):
-            ops.knn(x, x, 4, approx_recall=0.95)
+        for got, want in zip(ops.knn(x, x, 4, approx_recall=0.95), ops.knn(x, x, 4)):
+            assert torch.equal(got, want)
+        with pytest.raises(ValueError, match="approx_recall"):
+            ops.knn(x, x, 4, approx_recall=0.0)
 
 
 class TestTopkExtract:

@@ -126,17 +126,10 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="COMPUTE_DTYPE.*ROADMAP A3"):
-        get_model("minkloc3dv2", dict(configs.MINKLOC3DV2, COMPUTE_DTYPE="bfloat16"))
     with pytest.raises(ValueError, match="unknown model_type"):
         get_model("pointnet", TINY)
-    for key, value in (("COMPUTE_DTYPE", "bfloat16"), ("KNN_APPROX_RECALL", 0.95)):
-        with pytest.raises(NotImplementedError, match=key):
-            PatchAugNet(dict(TINY, **{key: value}))
-    # the train step's options that are not ported
+    # COMPUTE_DTYPE, KNN_APPROX_RECALL and REMAT are ported (tests/test_torch_precision.py)
     model = PatchAugNet(TINY)
-    with pytest.raises(NotImplementedError, match="REMAT"):
-        train.build_train_step(model, dict(configs.PATCH_AUG_NET_TRAIN, REMAT=True))
     # the patch branch and train-mode BatchNorm are ported (tests/test_torch_train.py);
     # a model built without a decoder reconstructs nothing
     out = model.eval()(torch.rand(2, 128, 3), with_patches=True)

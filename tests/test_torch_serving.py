@@ -199,12 +199,6 @@ def test_missing_sidecar_yields_empty_meta(exported, tmp_path):
     assert torch.equal(fwd(clouds), serving.build_forward_fn(live, CPU)(clouds))
 
 
-def test_cli_refuses_bfloat16(tmp_path):
-    with pytest.raises(NotImplementedError, match="A3"):
-        export_serving_torch.main(["--config", CFG_PATH, "--out", str(tmp_path), "--platform", CPU,
-                                   "--precision", "bfloat16"])
-
-
 _FRESH_SERVE = """
 import sys
 import numpy as np

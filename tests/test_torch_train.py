@@ -611,8 +611,6 @@ def test_center_fn_and_empty_inputs(run):
 
 
 def test_step_rejects_what_it_does_not_take(run):
-    state = _port_state(run)
-    with pytest.raises(NotImplementedError, match="REMAT"):
-        train.build_train_step(state.model, dict(CFG, REMAT=True))
+    # REMAT is taken (tests/test_torch_precision.py)
     with pytest.raises(ValueError, match="decoder"):
         train.build_train_step(get_model("patch_aug_net", dict(CFG, use_patch_recon=False)), CFG)

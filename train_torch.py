@@ -17,9 +17,11 @@ MultiStepLR (``scheduler_milestones``, default 250 and 350), a
 checkpoint per epoch and an eval every ``EVAL_EVERY_N_EPOCHS`` (1).
 ``--print-flops`` logs the eval forward's GFLOPs per cloud on a probe of
 4 clouds and the parameter table, as ``train.py:199-210`` does (counted by
-``utils.flops``: products and convolutions only). Not ported, each refused
-with the ROADMAP item that brings it: ``--devices`` above 1 (A11) and
-``--precision bfloat16`` (A3).
+``utils.flops``: products and convolutions only). ``--precision bfloat16``
+trains at that compute dtype (``COMPUTE_DTYPE``: the feature path in bf16,
+parameters, optimizer state and BatchNorm statistics f32); ``--remat``
+recomputes the forward in the backward (``REMAT``). Not ported, refused
+with the ROADMAP item that brings it: ``--devices`` above 1 (A11).
 
 Usage:
   python train_torch.py --config configs/patch_aug_net.yaml --dataset oxford
@@ -29,6 +31,8 @@ Usage:
       --max-batches 5 --epochs 1        # no data on disk needed
   python train_torch.py --config configs/tiny_smoke.yaml --dataset synthetic \
       --platform cpu --epochs 1 --max-batches 2
+  python train_torch.py --config configs/tiny_smoke.yaml --dataset synthetic \
+      --platform cpu --epochs 1 --max-batches 2 --precision bfloat16 --remat
 """
 import argparse
 import os
@@ -66,7 +70,9 @@ def get_args(argv=None):
     p.add_argument("--print-flops", action="store_true",
                    help="log the forward's GFLOPs per cloud and the parameter table at startup")
     p.add_argument("--precision", type=str, default=None, choices=["float32", "bfloat16"],
-                   help="model compute dtype (only float32 is ported)")
+                   help="model compute dtype (COMPUTE_DTYPE); parameters stay float32")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the forward in the backward (REMAT): less memory, more forward work")
     return p.parse_args(argv)
 
 
@@ -86,6 +92,10 @@ def build_cfg(args):
         cfg["NUM_POINTS"] = args.num_points
     if args.precision == "float32":
         cfg.pop("COMPUTE_DTYPE", None)
+    elif args.precision is not None:
+        cfg["COMPUTE_DTYPE"] = args.precision
+    if args.remat:
+        cfg["REMAT"] = True
     cfg["event_dir"] = os.path.join(
         cfg["EXP_DIR"], cfg["model_type"], "events",
         datetime.now().strftime("%Y-%m-%dT%H-%M-%S"),
@@ -98,8 +108,6 @@ def refuse_unported(args):
     """Raise ``NotImplementedError`` for what the port does not have yet."""
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError("--devices above 1: data-parallel training is not ported yet (ROADMAP A11)")
-    if args.precision == "bfloat16":
-        raise NotImplementedError("--precision bfloat16 is not ported yet (ROADMAP A3, COMPUTE_DTYPE)")
 
 
 def main(argv=None):
