@@ -56,7 +56,9 @@ Phases, each fatal on failure:
    indices, and metrics and new BatchNorm statistics within 1e-6; every
    loss term finite and positive, parameters and statistics changed and
    finite; then ms per step, clouds/s and peak device memory over 10
-   steps after 3 warm-up steps;
+   steps after 3 warm-up steps; then the step with ``A2A_MAX_CLOUDS`` 8
+   (the patch branch on 8 of the 12 query and positive clouds) held
+   against the plain kernels' path the same way;
 6. CLI: ``train_torch.py``'s ``main`` in this process on the flagship
    config (``configs/patch_aug_net.yaml``, 4096 points, 4 x 18 = 72 clouds
    per batch) and the synthetic scene for one epoch: up to 12 batches, the
@@ -151,7 +153,27 @@ Phases, each fatal on failure:
    parameters within 1e-6, the running statistics equal (updated once),
    K1 6 and K2 12 launches (the recomputed forward); then ms per step and
    peak memory of both;
-11. report: one ``{"kernels": [...]}`` line, the card's name and power
+11. parallel (``parallel``, ``torch.distributed``): (a) a world of one
+   rank under NCCL in this process: the flagship data-parallel step at 72
+   clouds with ``A2A_MAX_CLOUDS`` 8 against ``build_train_step`` from the
+   same state, deterministic algorithms on both (the total and the max
+   parameter difference printed; both within 1e-5); (b) two ranks sharing
+   the card over gloo (``parallel.spawn``): the data-parallel step at 36
+   clouds a rank, the patch rows from both ranks (SGD, deterministic
+   algorithms: total within 1e-5 relative, parameters and statistics
+   within 1e-5 of the single-process step, every rank's the same), the
+   sharded eval of PatchAugNet at B=100 (global, local and centres against
+   the live local forward, within 1e-5 and equal), ``sharded_knn`` and
+   ``sharded_fps`` at 4096 points over the two ranks (indices equal to
+   K2's and K1's), the point-sharded PatchAugNet and PPT-Net descriptors
+   at B=32 (within 1e-5 of ``build_forward_fn``), one
+   ``build_sharded_train_step`` step of PPT-Net at 18 clouds (total within
+   1e-5, parameters within 1e-2 of the largest update); each with its ms
+   beside the single-process figure and its launches per rank; (c)
+   ``train_torch.py`` for one batch and ``evaluate_torch.py`` at
+   ``--devices 2 --share-device`` (the ranks' models equal; the
+   descriptors within 1e-5 of ``--devices 1``'s);
+12. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -218,6 +240,21 @@ PRECISION_BATCHES = ((32, 5), (100, 2))       # (batch size, timed batches per t
 PRECISION_STEPS = 3                           # bf16 train steps checked, then timed per turn
 MIN_COSINE = 0.999                            # bf16 descriptors against f32 (the JAX suite's bound)
 REMAT_RTOL, REMAT_ATOL = 1e-6, 1e-6           # REMAT against the plain step (the JAX suite's bounds)
+# phase 11: ranks on the card, patch rows below B x (1 + P) = 12 (so they
+# come from both ranks), the records of the sharded eval, timed calls, and
+# the CPU suite's tolerances (tests/test_torch_parallel.py)
+PARALLEL_RANKS = 2
+PARALLEL_A2A = 8
+PARALLEL_EVAL_BATCH = 100
+PARALLEL_REPS = 3
+PARALLEL_RTOL, PARALLEL_ATOL = 1e-5, 1e-5     # a step's total (relative) and parameters and statistics (absolute)
+PARALLEL_DESC_TOL = 1e-5                      # sharded descriptors and features against the single-process forward
+# the point-sharded PPT-Net step's parameters against the single-process
+# step's, relative to the largest update: its loss (about 92 on random
+# weights) makes gradients large enough that the order of their sums shows
+# (measured 5.1e-4 at a largest update of 2.63; the JAX suite bounds this
+# step's gradients by 1e-1 in relative L2)
+PPT_UPDATE_RTOL = 1e-2
 
 
 def say(*parts):
@@ -974,10 +1011,16 @@ def phase_train(torch, mods, records, dev):
     if not torch.equal(centers, origin[0]):
         raise AssertionError("build_center_fn: centres differ from the forward's level-1 centres")
     say(f"train: centres equal to the forward's, launches {center_counts}")
-    return center_counts, step_counts, step_ms
+    # the patch branch on A2A_MAX_CLOUDS = 8 of the 12 query and positive
+    # clouds, against the plain kernels' path from a deep copy
+    a2a = dict(cfg, A2A_MAX_CLOUDS=PARALLEL_A2A)
+    model = seeded_init_(get_model("patch_aug_net", a2a), torch.Generator().manual_seed(5))
+    a2a_counts, _, _ = train_model(torch, mods, records, dev, a2a, model, f"patch_aug_net (A2A_MAX_CLOUDS={PARALLEL_A2A})",
+                                   STEP_LAUNCHES, seed=6, timed_steps=False)
+    return center_counts, step_counts, step_ms, a2a_counts
 
 
-def train_model(torch, mods, records, dev, cfg, model, what, launches, seed):
+def train_model(torch, mods, records, dev, cfg, model, what, launches, seed, timed_steps=True):
     """One step of ``train.build_train_step`` on ``cfg``'s tuple batch
     (``train_batch`` from ``seed``: clouds of 4096 points, and for
     PatchAugNet the patch branch on the query and positive clouds and
@@ -987,9 +1030,10 @@ def train_model(torch, mods, records, dev, cfg, model, what, launches, seed):
     indices equal, metrics and new BatchNorm statistics within 1e-6);
     every loss term finite and positive, parameters changed and finite,
     every statistic changed; then ms per step, clouds/s and peak memory
-    over TRAIN_STEPS steps after TRAIN_WARMUP. Returns the launch counts,
-    the ms per step and the first step's provenance centres (None for a
-    model without them)."""
+    over TRAIN_STEPS steps after TRAIN_WARMUP (not without
+    ``timed_steps``). Returns the launch counts, the ms per step (None
+    untimed) and the first step's provenance centres (None for a model
+    without them)."""
     from patchaugnet_tpu_torch import train
 
     state = train.create_train_state(model, cfg, device=dev)
@@ -1018,7 +1062,7 @@ def train_model(torch, mods, records, dev, cfg, model, what, launches, seed):
             if read_counts(mods, records) != before:
                 raise AssertionError(f"{what}: the plain train step launched a kernel")
         ref, plain = outs
-        check_provenance(torch, ref, plain, what, f"{what} train step")
+        check_provenance(torch, ref, plain, cfg["model_type"], f"{what} train step")
         errs = {k: abs(metrics[k].item() - v.item()) / abs(v.item()) for k, v in plain_metrics.items()}
         stats_err = max((a - b).abs().max().item() for a, b in zip(state.model.buffers(), plain_state.model.buffers()))
         if max(errs.values()) > 1e-6 or stats_err > 1e-6:
@@ -1041,6 +1085,8 @@ def train_model(torch, mods, records, dev, cfg, model, what, launches, seed):
     if not all(torch.isfinite(p).all() for p in state.model.parameters()):
         raise AssertionError(f"{what} train step: a parameter is not finite")
     say(f"{what} train: {text}")
+    if not timed_steps:
+        return counts, None, centers
 
     for _ in range(TRAIN_WARMUP):
         state, metrics = step(state, clouds, corr, mask)
@@ -2291,6 +2337,326 @@ def phase_precision(torch, mods, records, dev):
     return paths
 
 
+def rank_modules():
+    """The kernel wrappers' modules and their launch records, in a rank."""
+    mods = {name: importlib.import_module(f"patchaugnet_tpu_torch.ops.{name}") for name in ("fps", "knn")}
+    return mods, [KernelRecord(name, name, "", "") for name in mods]
+
+
+def timed(torch, fn, reps):
+    """(the last result, host ms per call) of ``reps`` calls of ``fn``
+    after one warm-up, the card synchronised around them."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / reps * 1e3
+
+
+def counted(torch, mods, records, fn):
+    """``fn()``, the kernel launches it made and its host ms (the card
+    synchronised around it)."""
+    torch.cuda.synchronize()
+    reset_counts(mods, records)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(mods, records), (time.perf_counter() - t0) * 1e3
+
+
+def ranks_agree(torch, model, mesh):
+    """Whether every rank of ``mesh`` holds the same parameters and
+    statistics (an elementwise maximum and minimum over the ranks)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().reshape(-1).double() for t in model.state_dict().values()])
+    hi, lo = flat.clone(), flat.clone()
+    dist.all_reduce(hi, dist.ReduceOp.MAX, group=mesh.group())
+    dist.all_reduce(lo, dist.ReduceOp.MIN, group=mesh.group())
+    return bool(torch.equal(hi, lo))
+
+
+def step_against_single(torch, train, state, cfg, run_parallel, clouds, corr, mask):
+    """One step through ``run_parallel(state)`` and, from a deep copy made
+    before it, one ``train.build_train_step`` step on the whole batch here:
+    (total rel err, parameters max abs err, statistics max abs err, the
+    parallel metrics)."""
+    single = copy.deepcopy(state)
+    state, metrics = run_parallel(state)
+    single, want = train.build_train_step(single.model, cfg)(single, clouds, corr, mask)
+    torch.cuda.synchronize()
+    rel = abs(metrics["total"].item() - want["total"].item()) / abs(want["total"].item())
+    params = max((a - b).abs().max().item() for a, b in zip(state.model.parameters(), single.model.parameters()))
+    stats = max((a - b).abs().max().item() for a, b in zip(state.model.buffers(), single.model.buffers()))
+    return rel, params, stats, {k: v.item() for k, v in metrics.items()}
+
+
+def parallel_rank():
+    """One rank of phase 11 (b), two ranks sharing the card over gloo:
+    every parallel path at full width, each held (on rank 0, after the
+    collectives) against its single-process counterpart on the same card.
+    Returns rank 0's checks and times, every rank's launch counts per path."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from patchaugnet_tpu_torch import configs, ops, parallel, serving, train
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    mesh = parallel.make_mesh()
+    dev, lead = mesh.device, mesh.rank == 0
+    mods, records = rank_modules()
+    out = {"counts": {}, "checks": {}, "ms": {}}
+
+    def shard(t):
+        n = t.shape[1] // mesh.size
+        return t[:, mesh.rank * n:(mesh.rank + 1) * n]
+
+    # the data-parallel flagship step, 36 clouds a rank, its patch rows from both
+    cfg = dict(configs.PATCH_AUG_NET_TRAIN, A2A_MAX_CLOUDS=PARALLEL_A2A, OPTIMIZER="momentum")
+    clouds, mask, corr = train_batch(torch, cfg, dev, seed=61)
+    rows = parallel.host_batch_slice(clouds.shape[0], mesh.rank, mesh.size)
+    state = train.create_train_state(seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(62)),
+                                     cfg, device=dev)
+    step = parallel.build_parallel_train_step(state.model, cfg, mesh)
+    local = parallel.make_global_batch(mesh, clouds[rows])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        single = copy.deepcopy(state) if lead else None
+        (state, metrics), out["counts"]["dp step"], _ = counted(torch, mods, records,
+                                                                lambda: step(state, local, corr, mask[rows]))
+        if lead:
+            single, want = train.build_train_step(single.model, cfg)(single, clouds, corr, mask)
+            out["checks"]["dp step"] = {
+                "total": metrics["total"].item(), "single total": want["total"].item(),
+                "rel": abs(metrics["total"].item() - want["total"].item()) / abs(want["total"].item()),
+                "params": max((a - b).abs().max().item()
+                              for a, b in zip(state.model.parameters(), single.model.parameters())),
+                "stats": max((a - b).abs().max().item() for a, b in zip(state.model.buffers(), single.model.buffers())),
+                "terms": {k: v.item() for k, v in metrics.items()}}
+            del single
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["checks"]["dp ranks agree"] = ranks_agree(torch, state.model, mesh)
+    (_, _), out["ms"]["dp step"] = timed(torch, lambda: step(state, local, corr, mask[rows]), PARALLEL_REPS)
+
+    # sharded eval at B=100: each rank its 50 records, the outputs gathered
+    eval_model = seeded_init_(get_model("patch_aug_net", configs.PATCH_AUG_NET), torch.Generator().manual_seed(63))
+    gen = torch.Generator(device=dev).manual_seed(64)
+    records100 = torch.rand((PARALLEL_EVAL_BATCH, N_POINTS, 3), generator=gen, device=dev)
+    pfwd = parallel.build_parallel_local_forward(eval_model, mesh)
+    (desc, local_feats, centers), out["counts"]["sharded eval"], _ = counted(
+        torch, mods, records, lambda: pfwd(parallel.shard_batch(mesh, records100)))
+    _, out["ms"]["sharded eval"] = timed(torch, lambda: pfwd(parallel.shard_batch(mesh, records100)), PARALLEL_REPS)
+
+    # point-axis sharded kNN and FPS at 4096 points over the two ranks
+    gen = torch.Generator(device=dev).manual_seed(65)
+    pts = torch.rand((B, N_POINTS, 3), generator=gen, device=dev)
+    qry = pts[:, ::4].contiguous()
+    (sk_idx, sk_d2), out["counts"]["sharded_knn"], _ = counted(
+        torch, mods, records, lambda: parallel.sharded_knn(shard(pts), qry, 20, mesh))
+    _, out["ms"]["sharded_knn"] = timed(torch, lambda: parallel.sharded_knn(shard(pts), qry, 20, mesh), PARALLEL_REPS)
+    # one call each of the slow paths below: m collectives per sharded FPS
+    sf_idx, out["counts"]["sharded_fps"], out["ms"]["sharded_fps"] = counted(
+        torch, mods, records, lambda: parallel.sharded_fps(shard(pts), PATCH_LEVELS[0], mesh))
+
+    # the point-sharded PatchAugNet and PPT-Net descriptors at B=32
+    ppt = seeded_init_(get_model("pptnet", configs.PPTNET_ORIGIN), torch.Generator().manual_seed(66)).to(dev)
+    eval_model.to(dev)
+    descs = {}
+    for name, model, fn in (("patchaugnet", eval_model, parallel.sharded_patchaugnet_descriptor),
+                            ("pptnet", ppt, parallel.sharded_pptnet_descriptor)):
+        descs[name], out["counts"][f"sharded {name}"], out["ms"][f"sharded {name}"] = counted(
+            torch, mods, records, lambda: fn(model, shard(pts), mesh, axis_name="data"))
+
+    # one point-sharded PPT-Net train step (18 clouds of 4096 points, 2048 a rank)
+    pcfg = dict(configs.PPTNET_ORIGIN, OPTIMIZER="momentum")
+    pclouds, pmask, pcorr = train_batch(torch, pcfg, dev, seed=67)
+    pstate = train.create_train_state(seeded_init_(get_model("pptnet", pcfg), torch.Generator().manual_seed(68)),
+                                      pcfg, device=dev)
+    sstep = parallel.build_sharded_train_step(pcfg, mesh, axis_name="data")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        single = copy.deepcopy(pstate) if lead else None
+        before = [p.detach().clone() for p in pstate.model.parameters()]
+        (pstate, pmetrics), out["counts"]["sharded pptnet step"], out["ms"]["sharded pptnet step"] = counted(
+            torch, mods, records, lambda: sstep(pstate, shard(pclouds)))
+        if lead:
+            single, want = train.build_train_step(single.model, pcfg)(single, pclouds, pcorr, pmask)
+            out["checks"]["pptnet step"] = {
+                "total": pmetrics["total"].item(), "single total": want["total"].item(),
+                "rel": abs(pmetrics["total"].item() - want["total"].item()) / abs(want["total"].item()),
+                "params": max((a - b).abs().max().item()
+                              for a, b in zip(pstate.model.parameters(), single.model.parameters())),
+                "update": max((a - b).abs().max().item() for a, b in zip(single.model.parameters(), before)),
+                "stats": max((a - b).abs().max().item()
+                             for a, b in zip(pstate.model.buffers(), single.model.buffers()))}
+            del single
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["checks"]["pptnet ranks agree"] = ranks_agree(torch, pstate.model, mesh)
+    torch.distributed.barrier()
+    if not lead:
+        return out
+
+    # rank 0 alone: the single-process counterparts on the same card
+    c = out["checks"]
+    forward = serving.build_local_forward_fn(eval_model, dev)
+    (want_desc, want_local, want_centers), out["ms"]["eval single"] = timed(torch, lambda: forward(records100),
+                                                                           PARALLEL_REPS)
+    c["sharded eval"] = {"desc": (desc - want_desc).abs().max().item(),
+                         "local": (local_feats - want_local).abs().max().item(),
+                         "centers equal": bool(torch.equal(centers, want_centers)),
+                         "finite unit": bool(torch.isfinite(desc).all()
+                                             and ((desc.norm(dim=-1) - 1).abs() < 1e-4).all())}
+    (k_idx, k_d2), out["ms"]["knn single"] = timed(torch, lambda: ops.knn(pts, qry, 20), PARALLEL_REPS)
+    c["sharded_knn equal"] = bool(torch.equal(sk_idx, k_idx) and torch.equal(sk_d2, k_d2))
+    f_idx, out["ms"]["fps single"] = timed(torch, lambda: ops.farthest_point_sample(pts, PATCH_LEVELS[0]),
+                                           PARALLEL_REPS)
+    c["sharded_fps equal"] = bool(torch.equal(sf_idx, f_idx))
+    for name, model in (("patchaugnet", eval_model), ("pptnet", ppt)):
+        fwd = serving.build_forward_fn(model, dev)
+        want, out["ms"][f"{name} single"] = timed(torch, lambda: fwd(pts), PARALLEL_REPS)
+        got = descs[name][0]
+        c[f"sharded {name}"] = {"desc": (got - want).abs().max().item(), "finite": bool(torch.isfinite(got).all())}
+    return out
+
+
+def phase_parallel(torch, mods, records, dev):
+    """Phase 11: the parallel layer. (a) a world of one under NCCL in this
+    process: the flagship data-parallel step at 72 clouds against
+    ``build_train_step`` from the same state; (b) two ranks sharing the
+    card over gloo (``parallel_rank``); (c) both CLIs at ``--devices 2
+    --share-device``. Returns every run's launch counts (both ranks')."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from patchaugnet_tpu_torch import configs, parallel, train
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+
+    import evaluate_torch
+    import train_torch
+
+    t_phase = time.perf_counter()
+    paths = []
+
+    # (a) a world of one under NCCL, the flagship config (Adam), deterministic
+    # algorithms on both sides
+    cfg = dict(configs.PATCH_AUG_NET_TRAIN, A2A_MAX_CLOUDS=PARALLEL_A2A)
+    store = tempfile.mkdtemp(prefix="pan_world_")
+    parallel.init_process(0, 1, os.path.join(store, "store"), platform="gpu")
+    try:
+        mesh = parallel.make_mesh()
+        clouds, mask, corr = train_batch(torch, cfg, dev, seed=60)
+        state = train.create_train_state(seeded_init_(get_model("patch_aug_net", cfg), torch.Generator().manual_seed(59)),
+                                         cfg, device=dev)
+        step = parallel.build_parallel_train_step(state.model, cfg, mesh)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            reset_counts(mods, records)
+            rel, params, stats, terms = step_against_single(torch, train, state, cfg,
+                                                            lambda s: step(s, clouds, corr, mask), clouds, corr, mask)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        counts = read_counts(mods, records)
+        check_launches(counts, {k: 2 * v for k, v in STEP_LAUNCHES.items()}, "world of one: both steps")
+        paths.append({k: v // 2 for k, v in counts.items()})
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if rel > PARALLEL_RTOL or params > PARALLEL_ATOL or stats > PARALLEL_ATOL or not np.isfinite(terms["total"]):
+        raise AssertionError(f"world of one: total rel err {rel}, parameters {params}, statistics {stats} against "
+                             f"build_train_step")
+    measured(f"phase 11 (a): data-parallel step, world of one ({backend}), {clouds.shape[0]} clouds, patch rows "
+             f"{PARALLEL_A2A}", f"total {terms['total']:.6f} (rel err {rel:.3g} against build_train_step from the same "
+             f"state), max parameter difference {params:.3g}, statistics {stats:.3g}; launches {paths[-1]}")
+
+    # (b) two ranks sharing the card over gloo
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(parallel_rank, PARALLEL_RANKS, platform="gpu", share_device=True)
+    world_s = time.perf_counter() - t0
+    want = {"dp step": STEP_LAUNCHES, "sharded eval": FORWARD_LAUNCHES, "sharded_knn": {"knn": 1}, "sharded_fps": {},
+            "sharded patchaugnet": {"fps": 2, "knn": 6}, "sharded pptnet": {"fps": 3, "knn": 8},
+            "sharded pptnet step": {"fps": 3, "knn": 8}}
+    for r, rank in enumerate(ranks):
+        for path, counts in rank["counts"].items():
+            check_launches({k: counts.get(k, 0) for k in ("fps", "knn")}, want[path], f"rank {r} {path}")
+            paths.append(counts)
+    c, ms = ranks[0]["checks"], ranks[0]["ms"]
+    dp, pp = c["dp step"], c["pptnet step"]
+    failures = []
+    if dp["rel"] > PARALLEL_RTOL or dp["params"] > PARALLEL_ATOL or dp["stats"] > PARALLEL_ATOL:
+        failures.append(f"data-parallel step {dp}")
+    if not all(v > 0 and np.isfinite(v) for v in dp["terms"].values()):
+        failures.append(f"data-parallel step terms {dp['terms']}")
+    if pp["rel"] > PARALLEL_RTOL or pp["params"] > PPT_UPDATE_RTOL * pp["update"] or pp["stats"] > PARALLEL_ATOL:
+        failures.append(f"PPT-Net sharded step {pp}")
+    if not (c["dp ranks agree"] and c["pptnet ranks agree"] and ranks[1]["checks"]["dp ranks agree"]):
+        failures.append("the ranks' parameters differ")
+    ev = c["sharded eval"]
+    if ev["desc"] > PARALLEL_DESC_TOL or ev["local"] > PARALLEL_DESC_TOL or not (ev["centers equal"]
+                                                                                and ev["finite unit"]):
+        failures.append(f"sharded eval {ev}")
+    if not (c["sharded_knn equal"] and c["sharded_fps equal"]):
+        failures.append(f"sharded_knn equal {c['sharded_knn equal']}, sharded_fps equal {c['sharded_fps equal']}")
+    for name in ("patchaugnet", "pptnet"):
+        if c[f"sharded {name}"]["desc"] > PARALLEL_DESC_TOL or not c[f"sharded {name}"]["finite"]:
+            failures.append(f"sharded {name} {c[f'sharded {name}']}")
+    if failures:
+        raise AssertionError("phase 11 (b): " + "; ".join(failures))
+    measured("phase 11 (b): two ranks on one card (gloo)",
+             f"world {world_s:.1f} s; data-parallel step, 36 clouds a rank, patch rows {PARALLEL_A2A} from both: total "
+             f"{dp['total']:.6f} (single {dp['single total']:.6f}, rel err {dp['rel']:.3g}), parameters max abs err "
+             f"{dp['params']:.3g}, statistics {dp['stats']:.3g} (SGD, deterministic algorithms), "
+             f"{ms['dp step']:.2f} ms per step; sharded eval B={PARALLEL_EVAL_BATCH}: descriptors max abs err "
+             f"{ev['desc']:.3g}, local {ev['local']:.3g}, centres equal, {ms['sharded eval']:.2f} ms per batch "
+             f"({PARALLEL_EVAL_BATCH / ms['sharded eval'] * 1e3:.1f} descriptors/s) against "
+             f"{ms['eval single']:.2f} ms single ({PARALLEL_EVAL_BATCH / ms['eval single'] * 1e3:.1f} descriptors/s)")
+    measured(f"phase 11 (b): point-axis sharding over two ranks, B={B} clouds of {N_POINTS} points",
+             f"sharded_knn k=20 indices and d2 equal to K2's, {ms['sharded_knn']:.2f} ms per call against "
+             f"{ms['knn single']:.3f} ms; sharded_fps m={PATCH_LEVELS[0]} indices equal to K1's, "
+             f"{ms['sharded_fps']:.1f} ms per level against {ms['fps single']:.3f} ms; PatchAugNet descriptors "
+             f"max abs err {c['sharded patchaugnet']['desc']:.3g}, {ms['sharded patchaugnet']:.2f} ms against "
+             f"{ms['patchaugnet single']:.2f} ms; PPT-Net {c['sharded pptnet']['desc']:.3g}, "
+             f"{ms['sharded pptnet']:.2f} ms against {ms['pptnet single']:.2f} ms; PPT-Net sharded step total "
+             f"rel err {pp['rel']:.3g}, parameters {pp['params']:.3g} (largest update {pp['update']:.3g}), "
+             f"statistics {pp['stats']:.3g}, "
+             f"{ms['sharded pptnet step']:.1f} ms for the step (deterministic algorithms); launches per rank "
+             + ", ".join(f"{k} {v}" for k, v in ranks[0]["counts"].items()))
+
+    # (c) the CLIs at --devices 2 on the shared card
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".parallel_cli_") as exp:
+        t0 = time.perf_counter()
+        run = train_torch.main(["--config", CLI_CONFIG, "--dataset", "synthetic", "--epochs", "1", "--max-batches",
+                                "1", "--devices", "2", "--share-device", "--exp_dir", exp])
+        train_s = time.perf_counter() - t0
+        models = [r["model"] for r in run["ranks"]]
+        if not all(torch.equal(v, models[1][k]) and torch.isfinite(v.float()).all() for k, v in models[0].items()):
+            raise AssertionError("train_torch.py --devices 2: the ranks' models differ or are not finite")
+        loss = run["summaries"][0]["total"]
+        if not np.isfinite(loss):
+            raise AssertionError(f"train_torch.py --devices 2: total {loss}")
+        argv = ["--config", CLI_CONFIG, "--dataset", "synthetic", "--exp_dir", exp, "--no_save_top_k"]
+        t0 = time.perf_counter()
+        two = evaluate_torch.main(argv + ["--devices", "2", "--share-device"])
+        eval_s = time.perf_counter() - t0
+        one = evaluate_torch.main(argv)
+        err = float(np.abs(two["global_descs"] - one["test_ds"].scene.global_descs).max())
+        if err > PARALLEL_DESC_TOL or not np.array_equal(two["global_descs"], two["ranks"][1]["global_descs"]):
+            raise AssertionError(f"evaluate_torch.py --devices 2: descriptors max abs err {err} against --devices 1, "
+                                 f"or the ranks' differ")
+    measured("phase 11 (c): the CLIs at --devices 2 --share-device",
+             f"train_torch.py one batch of {run['cfg']['TRAIN_BATCH_SIZE']} tuples over two ranks: total {loss:.6f}, "
+             f"the ranks' models equal, {train_s:.1f} s; evaluate_torch.py: descriptors max abs err {err:.3g} against "
+             f"--devices 1, recall@1 {two.get('recall_at_1')} (--devices 1: {one.get('recall_at_1')}), {eval_s:.1f} s")
+    say(f"phase 11 (parallel): {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main():
     global CARD
     import torch
@@ -2314,12 +2680,13 @@ def main():
     records = phase_kernels(torch, ops, mods, dev) + phase_emd_kernels(torch, ops, mods, dev)
     serving_counts = phase_serving(torch, mods, records, dev)
     emd_counts, chunked_counts = phase_emd(torch, ops, mods, records, dev)
-    center_counts, step_counts, step_ms = phase_train(torch, mods, records, dev)
+    center_counts, step_counts, step_ms, a2a_counts = phase_train(torch, mods, records, dev)
     cli_counts = phase_cli(torch, mods, records, step_ms)
     family_counts = phase_families(torch, ops, mods, records, dev)
     minkloc_counts = phase_minkloc(torch, mods, records, dev)
     deploy_counts = phase_deploy(torch, mods, records, dev)
     precision_counts = phase_precision(torch, mods, records, dev)
+    parallel_counts = phase_parallel(torch, mods, records, dev)
 
     # each kernel's launches on its paths: K1-K3 serving, K6 emd_loss, K4
     # the row-chunked auction, K1 and K2 the train step and its centres,
@@ -2328,8 +2695,9 @@ def main():
     # deployment's artifacts, in the fresh serving process and here, and
     # the bf16 forwards and steps and the REMAT step (each run counts only
     # its own kernels)
-    paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts, *cli_counts, *family_counts,
-             *minkloc_counts, *deploy_counts, *precision_counts)
+    paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts, a2a_counts, *cli_counts,
+             *family_counts,
+             *minkloc_counts, *deploy_counts, *precision_counts, *parallel_counts)
     launches = {name: sum(counts.get(name, 0) for counts in paths) for name in serving_counts}
     # K5 (``topk_extract_pair``) is K3's function by K3's kernel, on no path
     # (the JAX package dispatches it nowhere): its line repeats K3's times

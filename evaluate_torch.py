@@ -16,11 +16,16 @@ It evaluates ``patch_aug_net``, ``pptnet``, ``pptnet_l2_norm``,
 (PointNetVLAD, MinkLoc3Dv2) takes the global forward where the
 descriptor store would take the local one. ``--precision bfloat16`` runs
 the forward at that compute dtype (``COMPUTE_DTYPE``) on the same f32
-weights. Not ported, refused with the ROADMAP item that brings it:
-``--devices`` above 1 (A11). The JAX package's orbax checkpoint
-directories are refused for good (ROADMAP C): the card's machine has
-neither JAX nor orbax, and ``compat.load_jax_variables`` carries JAX
-weights as numpy.
+weights. ``--devices N`` shards the records of each batch over N ranks, one
+process each (``parallel.build_parallel_local_forward``, as
+``evaluate.py:147-165``; ``--batch_size`` must split evenly): every rank
+gets the whole batch's outputs back, and rank 0 alone logs and writes the
+descriptor store and the top-k dump, the bytes of a ``--devices 1`` run.
+The ranks use NCCL on cards of their own, gloo with ``--platform cpu``, and
+gloo on one card with ``--share-device``. The JAX package's orbax
+checkpoint directories are refused for good (ROADMAP C): the card's
+machine has neither JAX nor orbax, and ``compat.load_jax_variables``
+carries JAX weights as numpy.
 
 Usage:
   python evaluate_torch.py --model_type patch_aug_net \
@@ -30,6 +35,7 @@ Usage:
   python evaluate_torch.py --model_type pointnet_vlad --dataset synthetic
   python evaluate_torch.py --model_type minkloc3dv2 --dataset synthetic
   python evaluate_torch.py --model_type patch_aug_net --dataset synthetic --precision bfloat16
+  python evaluate_torch.py --config configs/tiny_smoke.yaml --dataset synthetic --platform cpu --devices 2
 """
 import argparse
 import os
@@ -70,7 +76,9 @@ def get_args(argv=None):
     p.add_argument("--platform", type=str, default="gpu", choices=["gpu", "cpu"],
                    help="gpu (the default: the CUDA card) or cpu")
     p.add_argument("--devices", type=int, default=1,
-                   help="devices for descriptor extraction (only 1 is ported)")
+                   help="devices for descriptor extraction: one rank per device")
+    p.add_argument("--share-device", action="store_true",
+                   help="with --devices above the card count, put the ranks on the cards in turn (over gloo)")
     p.add_argument("--precision", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="compute dtype of the forward (COMPUTE_DTYPE); checkpoints are precision-agnostic")
@@ -78,9 +86,11 @@ def get_args(argv=None):
 
 
 def refuse_unported(args):
-    """Raise ``NotImplementedError`` for what the port does not have yet."""
-    if args.devices > 1:
-        raise NotImplementedError("--devices above 1: sharded eval is not ported yet (ROADMAP A11)")
+    """Raise for what the port does not take: an orbax directory
+    (``NotImplementedError``), a batch that does not split over
+    ``--devices`` (``ValueError``)."""
+    if args.batch_size % args.devices:
+        raise ValueError(f"--batch_size {args.batch_size} must split evenly over --devices {args.devices}")
     if args.weight and os.path.isdir(args.weight):
         raise NotImplementedError(
             f"--weight {args.weight}: orbax checkpoint directories of the JAX package are not read (ROADMAP C): "
@@ -133,25 +143,56 @@ def main(argv=None):
     """Evaluate as ``evaluate.py`` does; returns the eval's result (recall,
     1% recall, descriptor time), with ``test_ds`` (its descriptors in
     ``test_ds.scene.global_descs``), the eval's ``forward`` and
-    ``top_k_path`` where the dump went."""
+    ``top_k_path`` where the dump went. With ``--devices`` above 1 it
+    returns rank 0's result without ``test_ds`` and ``forward``, with
+    ``global_descs``, and every rank's under ``ranks``."""
     args = get_args(argv)
     from patchaugnet_tpu_torch.serving import platform_device
 
     device = platform_device(args.platform)
     refuse_unported(args)
+    if args.devices > 1:
+        from patchaugnet_tpu_torch import parallel
+
+        ranks = parallel.spawn(_evaluate_rank, args.devices, args=(args,), platform=args.platform,
+                               share_device=args.share_device)
+        return dict(ranks[0], ranks=ranks)
+    return _evaluate(args, device)
+
+
+def _evaluate_rank(args):
+    """One rank of ``--devices N``: what pickles of its result."""
+    from patchaugnet_tpu_torch import parallel
+
+    mesh = parallel.make_mesh()
+    out = _evaluate(args, mesh.device, mesh)
+    out["global_descs"] = out.pop("test_ds").scene.global_descs
+    out.pop("forward")
+    return out
+
+
+def _evaluate(args, device, mesh=None):
+    """The eval on ``device``; with a ``mesh``, this rank's part of the
+    sharded eval (rank 0 alone logs and writes)."""
+    import logging
 
     import torch
 
-    from patchaugnet_tpu_torch import data, train
+    from patchaugnet_tpu_torch import data, parallel, train
     from patchaugnet_tpu_torch.configs import load_config
     from patchaugnet_tpu_torch.utils import get_logger
 
+    lead = mesh is None or mesh.rank == 0
     cfg = load_config(args.config or CONFIG_TABLE[args.model_type])
     cfg["model_type"] = args.model_type
     cfg["dataset"] = args.dataset
     set_precision(cfg, args.precision)
 
-    logger = get_logger(os.path.join(args.exp_dir, args.model_type, "eval"))
+    if lead:
+        logger = get_logger(os.path.join(args.exp_dir, args.model_type, "eval"))
+    else:
+        logger = logging.getLogger(f"patchaugnet_tpu_torch.rank{mesh.rank}")
+        logger.disabled = True
     logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
 
     ds_kwargs = dict(
@@ -180,10 +221,21 @@ def main(argv=None):
         if not args.no_save_descs and args.dataset != "synthetic"
         else None
     )
-    forward = eval_forward(state.model, device, local=save_model_type is not None)
+    if mesh is None:
+        forward = eval_forward(state.model, device, local=save_model_type is not None)
+    else:
+        # the records of each batch split over the ranks, every output
+        # gathered back, the store's bytes those of one device
+        pfwd = parallel.build_parallel_local_forward(state.model, mesh) if save_model_type else None
+        pfwd = pfwd or parallel.build_parallel_forward(state.model, mesh)
+
+        def forward(clouds):
+            return pfwd(parallel.shard_batch(mesh, clouds))
+
+        logger.info(f"sharded eval over {mesh.size} devices ({torch.distributed.get_backend()})")
     out = train.evaluate(
         forward, test_ds, top_k=25, batch_size=args.batch_size, logger=logger,
-        save_model_type=save_model_type,
+        save_model_type=save_model_type if lead else None,
     )
     out["test_ds"], out["forward"] = test_ds, forward
     if out.get("desc_time"):
@@ -191,7 +243,7 @@ def main(argv=None):
             f"run time: {out['desc_time']['mean_ms']:.2f} +- "
             f"{out['desc_time']['std_ms']:.2f} ms per cloud"
         )
-    if not args.no_save_top_k:
+    if not args.no_save_top_k and lead:
         top = test_ds.find_and_save_top(
             model_type=args.model_type, top_k=args.top_k,
             space_type=args.top_k_space,

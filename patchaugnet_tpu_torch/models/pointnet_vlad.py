@@ -50,14 +50,19 @@ class PointNetFeat(nn.Module):
             width = f
         self.feature_trans = STN3D(k=64, use_bn=False) if feature_transform else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.bmm(x, self.stn(x))
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """``group``: the process group over which the N axis of ``x`` is
+        split (point-axis sharding, eval only; the transforms' max-pools
+        run over it). Not with ``max_pool``."""
+        if group is not None and self.max_pool:
+            raise ValueError("a point-sharded PointNetFeat returns per-point features (max_pool=False)")
+        x = torch.bmm(x, self.stn(x, group))
         for name, _, relu in _CONVS:
             x = getattr(self, f"{name}_bn")(getattr(self, name)(x))
             if relu:
                 x = torch.relu(x)
             if name == "conv2" and self.feature_trans is not None:
-                x = torch.bmm(x.to(torch.float32), self.feature_trans(x))
+                x = torch.bmm(x.to(torch.float32), self.feature_trans(x, group))
         return x.amax(dim=1) if self.max_pool else x
 
 
@@ -74,7 +79,9 @@ class PointNetVLAD(nn.Module):
         self.net_vlad = NetVLADLoupe(feature_size=1024, cluster_size=64, output_dim=output_dim, gating=True,
                                      dtype=compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """``group``: the process group over which the N axis of ``x`` is
+        split (``parallel.sharded_pointnetvlad_descriptor``, eval only)."""
         if x.dim() == 4:                                   # accept (B, 1, N, 3)
             x = x.squeeze(1)
-        return self.net_vlad(self.point_net(x)).to(torch.float32)
+        return self.net_vlad(self.point_net(x, group), group).to(torch.float32)

@@ -17,7 +17,7 @@ f32. With no compute dtype every cast is a no-op.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Iterator, Mapping, Optional, Sequence
+from typing import Any, Iterator, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +28,7 @@ BN_MOMENTUM = 0.9   # flax's: running = 0.9 * running + 0.1 * batch (torch's mom
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 _frozen_running_stats = 0   # > 0 inside frozen_running_stats()
+_stats_group: Optional[Tuple[Any, int]] = None   # (process group, its size) inside batch_stats_group()
 
 
 def compute_dtype(param: Mapping[str, Any]) -> Optional[torch.dtype]:
@@ -54,6 +55,68 @@ def frozen_running_stats() -> Iterator[None]:
         yield
     finally:
         _frozen_running_stats -= 1
+
+
+@contextlib.contextmanager
+def batch_stats_group(group, size: int) -> Iterator[None]:
+    """Train-mode BatchNorms inside take their batch statistics over every
+    rank of ``group`` (``size`` ranks, each holding as many rows): each
+    rank's mean and mean of squares are averaged over the group by one
+    ``all_reduce`` that carries autograd, so the statistics are those of
+    the whole batch, as the JAX package's data-parallel step takes them
+    under GSPMD. The running update and eval mode are unchanged; a group of
+    one gives today's statistics bit for bit."""
+    global _stats_group
+    previous, _stats_group = _stats_group, (group, size)
+    try:
+        yield
+    finally:
+        _stats_group = previous
+
+
+class _GroupSum(torch.autograd.Function):
+    """``all_reduce`` (sum) whose backward sums the gradients over the
+    group the same way."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+
+        ctx.group = group
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _GroupSum.apply(grad, ctx.group), None
+
+
+def group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (one ``all_reduce``), as a
+    new tensor. Where ``t`` needs a gradient the sum carries autograd: its
+    backward sums the gradients over the group."""
+    return _GroupSum.apply(t, group)
+
+
+def group_max(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``'s elementwise maximum over the ranks of ``group``, as a new
+    tensor; for forwards without autograd (the max's gradient is not
+    carried)."""
+    import torch.distributed as dist
+
+    if t.requires_grad:
+        raise ValueError("group_max carries no gradient: run it without autograd")
+    t = t.clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
+
+
+def _group_means(mean: torch.Tensor, meansq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-rank means averaged over the group of :func:`batch_stats_group`."""
+    group, size = _stats_group
+    both = group_sum(torch.stack([mean, meansq]), group) / size
+    return both[0], both[1]
 
 
 class Dense(nn.Linear):
@@ -85,7 +148,8 @@ class BatchNorm(nn.Module):
     ``var = max(mean(x^2) - mean(x)^2, 0)``, the biased variance), and
     updates the running statistics in place:
     ``running = BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch``
-    (not inside :func:`frozen_running_stats`). A lower-precision input is
+    (not inside :func:`frozen_running_stats`); inside
+    :func:`batch_stats_group` the batch statistics are the group's. A lower-precision input is
     reduced and normalised in f32, and the result cast back to its dtype.
     """
 
@@ -103,7 +167,10 @@ class BatchNorm(nn.Module):
             return ((xf - self.running_mean) * mul + self.bias).to(x.dtype)
         axes = tuple(range(x.dim() - 1))
         mean = xf.mean(axes)
-        var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+        meansq = (xf * xf).mean(axes)
+        if _stats_group is not None:
+            mean, meansq = _group_means(mean, meansq)
+        var = torch.clamp_min(meansq - mean * mean, 0.0)
         self.update_running(mean, var)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         return ((xf - mean) * mul + self.bias).to(x.dtype)

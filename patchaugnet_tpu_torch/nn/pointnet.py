@@ -16,7 +16,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .core import BatchNorm, l2_normalize
+from .core import BatchNorm, group_max, l2_normalize
 
 
 class PointNetDecoder(nn.Module):
@@ -70,11 +70,16 @@ class STN3D(nn.Module):
         self.fc3 = nn.Linear(256, k * k)
         self.zero_init = ("fc3",)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """``group``: the process group over which the N axis of ``x`` is
+        split (point-axis sharding, eval only); the max over the points is
+        then taken over it."""
         h = x.to(torch.float32)
         for name in ("conv1", "conv2", "conv3"):
             h = _dense_bn_relu(self, name, h)
         h = h.amax(dim=1)                                   # (B, 1024)
+        if group is not None:
+            h = group_max(h, group)
         for name in ("fc1", "fc2"):
             h = _dense_bn_relu(self, name, h)
         eye = torch.eye(self.k, dtype=h.dtype, device=h.device).reshape(-1)

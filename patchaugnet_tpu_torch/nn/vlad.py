@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from .attention import AdaptiveFeatureAggregator
-from .core import BatchNorm, l2_normalize
+from .core import BatchNorm, group_sum, l2_normalize
 
 
 def _flatten_ck(v: torch.Tensor) -> torch.Tensor:
@@ -52,12 +52,17 @@ class NetVLADBase(nn.Module):
         self.bn1 = BatchNorm(cluster_size)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """``group``: the process group over which the N axis of ``x`` is
+        split (point-axis sharding, ``parallel.sharded_model``); the two
+        N-sums are then summed over it (the JAX ``psum_axis``)."""
         xc = _rounded(x, self.compute_dtype)
         activation = self.bn1(torch.einsum("bnc,ck->bnk", xc, _rounded(self.cluster_weights, self.compute_dtype)))
         activation = torch.softmax(activation, dim=-1)     # (B, N, K)
         a_sum = activation.sum(dim=1, keepdim=True)        # (B, 1, K)
         vlad = torch.einsum("bnk,bnc->bck", _rounded(activation, self.compute_dtype), xc)
+        if group is not None:
+            a_sum, vlad = group_sum(a_sum, group), group_sum(vlad, group)
         vlad = vlad - a_sum * self.cluster_weights2        # (B, C, K)
         return l2_normalize(vlad, dim=1)
 
@@ -131,10 +136,13 @@ class SpatialPyramidNetVLAD(nn.Module):
         if gating:
             self.context_gating = GatingContext(d0)
 
-    def forward(self, features: List[torch.Tensor]) -> torch.Tensor:
+    def forward(self, features: List[torch.Tensor], groups: Optional[Sequence] = None) -> torch.Tensor:
+        """``groups``: per scale, the process group that splits its N axis
+        (``NetVLADBase``'s ``group``) or None (the JAX ``psum_axes``)."""
         if len(features) != self.scales:
             raise ValueError(f"expected {self.scales} scales, got {len(features)}")
-        v_list = [getattr(self, f"vlad{i}")(f) for i, f in enumerate(features)]   # [(B, C, K_i)]
+        groups = groups or [None] * self.scales
+        v_list = [getattr(self, f"vlad{i}")(f, groups[i]) for i, f in enumerate(features)]   # [(B, C, K_i)]
         t = self.aggregation_type
         if t == 0:
             v = torch.cat(v_list, dim=-1)                   # (B, C, sumK)
@@ -187,10 +195,12 @@ class PPTSpatialPyramidNetVLAD(nn.Module):
         self.bn2 = BatchNorm(d0)
         self.context_gating = GatingContext(d0) if gating else None
 
-    def forward(self, features: List[torch.Tensor]) -> torch.Tensor:
+    def forward(self, features: List[torch.Tensor], groups: Optional[Sequence] = None) -> torch.Tensor:
+        """``groups`` as ``SpatialPyramidNetVLAD``'s."""
         if len(features) != self.scales:
             raise ValueError(f"expected {self.scales} scales, got {len(features)}")
-        flats = [_flatten_ck(getattr(self, f"vlad{i}")(f)) for i, f in enumerate(features)]
+        groups = groups or [None] * self.scales
+        flats = [_flatten_ck(getattr(self, f"vlad{i}")(f, groups[i])) for i, f in enumerate(features)]
         vlad = self.bn2(torch.cat(flats, dim=-1) @ self.hidden_weights)
         if self.context_gating is not None:
             vlad = self.context_gating(vlad)
@@ -213,8 +223,9 @@ class NetVLADLoupe(nn.Module):
         self.bn2 = BatchNorm(output_dim)
         self.context_gating = GatingContext(output_dim) if gating else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        flat = l2_normalize(_flatten_ck(self.base(x)), dim=-1)
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """``group`` as ``NetVLADBase``'s."""
+        flat = l2_normalize(_flatten_ck(self.base(x, group)), dim=-1)
         out = self.bn2(flat @ self.hidden1_weights)
         if self.context_gating is not None:
             out = self.context_gating(out)

@@ -67,19 +67,15 @@ def _first_true(mask: torch.Tensor, r: int) -> torch.Tensor:
     return sel[:r]
 
 
-def _remat_contexts():
-    """The first forward as it is; the recomputed one with frozen running statistics."""
-    return contextlib.nullcontext(), frozen_running_stats()
-
-
-def make_loss_fn(model: nn.Module, cfg: Dict[str, Any]) -> Callable:
-    """``loss_fn(clouds, corr, cloud_mask) -> (total, metrics)`` on the
-    model as it stands: in train mode its BatchNorms normalise with the
-    batch statistics and update their running statistics in place.
-    ``metrics`` holds each weighted term and ``"total"``. With ``REMAT``
-    the model's forward keeps none of its activations: the backward runs
-    it again (its kernels launch again), the running statistics frozen.
-    """
+def _loss_parts(cfg: Dict[str, Any]):
+    """The step's loss around the model's forward, shared by
+    :func:`make_loss_fn` and the data-parallel step
+    (``parallel.build_parallel_train_step``): ``(use_patches, patch_rows,
+    terms)``. ``patch_rows(cloud_mask)`` gives the ids of the clouds the
+    patch branch runs on and which of them are valid; ``terms(desc,
+    patch_data, sel, sel_valid, corr, total_clouds)`` the weighted total
+    and the metrics from the whole batch's descriptors and the branch's
+    output."""
     batch_size = cfg["TRAIN_BATCH_SIZE"]
     num_pos = cfg["TRAIN_POSITIVES_PER_QUERY"]
     num_neg = cfg["TRAIN_NEGATIVES_PER_QUERY"]
@@ -103,39 +99,31 @@ def make_loss_fn(model: nn.Module, cfg: Dict[str, Any]) -> Callable:
     # fixed-size subset of the tuple batch
     max_patch_clouds = cfg.get("A2A_MAX_CLOUDS", batch_size * (1 + num_pos))
 
-    def apply(clouds, **kwargs):
-        if not cfg.get("REMAT", False):
-            return model(clouds, **kwargs)
-        return torch.utils.checkpoint.checkpoint(model, clouds, use_reentrant=False, context_fn=_remat_contexts,
-                                                 **kwargs)
+    def patch_rows(cloud_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        r = min(max_patch_clouds, cloud_mask.shape[0])
+        # fill rows carry cloud 0 through the branch, so they count in
+        # the decoder BatchNorms' batch statistics, as in the JAX step
+        sel = _first_true(cloud_mask, r)
+        sel_valid = torch.arange(r, device=cloud_mask.device) < cloud_mask.sum()
+        return sel, sel_valid
 
-    def loss_fn(clouds: torch.Tensor, corr: PatchCorrespondences,
-                cloud_mask: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        if not use_patches:
-            out = apply(clouds)
-        else:
-            total_clouds = clouds.shape[0]
-            r = min(max_patch_clouds, total_clouds)
-            # fill rows carry cloud 0 through the branch, so they count in
-            # the decoder BatchNorms' batch statistics, as in the JAX step
-            sel = _first_true(cloud_mask, r)
-            sel_valid = torch.arange(r, device=clouds.device) < cloud_mask.sum()
-            out = apply(clouds, with_patches=True, patch_rows=sel)
-        q, p, n, o = _split_tuple(global_desc(out), batch_size, num_pos, num_neg)
+    def terms(desc, patch_data, sel, sel_valid, corr: PatchCorrespondences,
+              total_clouds: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        q, p, n, o = _split_tuple(desc, batch_size, num_pos, num_neg)
         metrics = {"place_recognition": pr_loss(q, p, n, o, m1, m2, use_min=use_min, lazy=lazy,
                                                 ignore_zero_loss=ignore_zero)}
         if use_a2a:
-            pd = out.patch_data
             metrics["patch_recon_a2a"] = L.patch_chamfer_loss(
-                pd.origin_patches, pd.reconstructed_patches, sel_valid)
+                patch_data.origin_patches, patch_data.reconstructed_patches, sel_valid)
         if use_a2b:
             # correspondence cloud ids (flat-batch positions) to subset
             # rows; only valid entries scatter, fill rows park at index
             # total_clouds, which is cut away
+            r = sel.shape[0]
             scatter_to = torch.where(sel_valid, sel, total_clouds)
-            pos_of = torch.zeros((total_clouds + 1,), dtype=torch.int64, device=clouds.device)
-            pos_of = pos_of.scatter(0, scatter_to, torch.arange(r, device=clouds.device))[:total_clouds]
-            covered = torch.zeros((total_clouds + 1,), dtype=torch.bool, device=clouds.device)
+            pos_of = torch.zeros((total_clouds + 1,), dtype=torch.int64, device=desc.device)
+            pos_of = pos_of.scatter(0, scatter_to, torch.arange(r, device=desc.device))[:total_clouds]
+            covered = torch.zeros((total_clouds + 1,), dtype=torch.bool, device=desc.device)
             covered = covered.scatter(0, scatter_to, True)[:total_clouds]
             q_cloud, n_cloud = corr.row_q_cloud.long(), corr.row_n_cloud.long()
             corr_sub = corr._replace(
@@ -146,11 +134,60 @@ def make_loss_fn(model: nn.Module, cfg: Dict[str, Any]) -> Callable:
                 # from the masked clouds)
                 row_valid=corr.row_valid & covered[q_cloud] & covered[n_cloud],
             )
-            metrics["patch_recon_a2b"] = L.patch_contrastive_loss(out.patch_data.patch_features, corr_sub, m1)
+            metrics["patch_recon_a2b"] = L.patch_contrastive_loss(patch_data.patch_features, corr_sub, m1)
         total = sum(w[k] * v for k, v in metrics.items())
         metrics = {k: w[k] * v for k, v in metrics.items()}
         metrics["total"] = total
         return total, metrics
+
+    return use_patches, patch_rows, terms
+
+
+def remat_apply(model: nn.Module, cfg: Dict[str, Any], extra: Callable = contextlib.nullcontext) -> Callable:
+    """``apply(clouds, **kwargs)``: the model's forward, under ``extra()``;
+    with ``REMAT`` it keeps none of its activations and the backward runs
+    it again under ``extra()`` with the running statistics frozen."""
+    if not cfg.get("REMAT", False):
+        def apply(clouds, **kwargs):
+            with extra():
+                return model(clouds, **kwargs)
+        return apply
+
+    @contextlib.contextmanager
+    def recompute():
+        with frozen_running_stats(), extra():
+            yield
+
+    def contexts():
+        return extra(), recompute()
+
+    def apply(clouds, **kwargs):
+        return torch.utils.checkpoint.checkpoint(model, clouds, use_reentrant=False, context_fn=contexts, **kwargs)
+
+    return apply
+
+
+def make_loss_fn(model: nn.Module, cfg: Dict[str, Any]) -> Callable:
+    """``loss_fn(clouds, corr, cloud_mask) -> (total, metrics)`` on the
+    model as it stands: in train mode its BatchNorms normalise with the
+    batch statistics and update their running statistics in place.
+    ``metrics`` holds each weighted term and ``"total"``. With ``REMAT``
+    the model's forward keeps none of its activations: the backward runs
+    it again (its kernels launch again), the running statistics frozen.
+    """
+    use_patches, patch_rows, terms = _loss_parts(cfg)
+    apply = remat_apply(model, cfg)
+
+    def loss_fn(clouds: torch.Tensor, corr: PatchCorrespondences,
+                cloud_mask: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        sel = sel_valid = None
+        if not use_patches:
+            out = apply(clouds)
+        else:
+            sel, sel_valid = patch_rows(cloud_mask)
+            out = apply(clouds, with_patches=True, patch_rows=sel)
+        return terms(global_desc(out), out.patch_data if use_patches else None, sel, sel_valid, corr,
+                     clouds.shape[0])
 
     return loss_fn
 

@@ -184,16 +184,22 @@ def test_train_cli_needs_cuda_or_platform_cpu(tmp_path):
     (["--devices", "2"], "A11"),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, flags, item):
-    argv = ["--config", os.path.join(REPO, "configs", "tiny_smoke.yaml"), "--dataset", "synthetic", "--platform", "cpu",
-            "--exp_dir", str(tmp_path / "exp"), *flags]
-    with pytest.raises(NotImplementedError, match=item):
+    """TruncatedSmoothAP (MinkLoc3Dv2) trains on one device: ``--devices``
+    above 1 is refused with a message, before any rank starts (ROADMAP C;
+    data-parallel training, A11, takes the tuple losses)."""
+    argv = ["--config", os.path.join(REPO, "configs", "minkloc3dv2.yaml"), "--dataset", "synthetic", "--platform",
+            "cpu", "--exp_dir", str(tmp_path / "exp"), *flags]
+    with pytest.raises(ValueError, match=item):
         train_torch.main(argv)
 
 
 def test_evaluate_cli_refuses_what_is_not_ported(tmp_path):
+    """An orbax directory is refused; so is a batch that does not split
+    over ``--devices``."""
     base = ["--dataset", "synthetic", "--platform", "cpu", "--exp_dir", str(tmp_path)]
-    for flags, item in ((["--weight", str(tmp_path)], "orbax"), (["--devices", "2"], "A11")):
-        with pytest.raises(NotImplementedError, match=item):
+    for flags, error, item in ((["--weight", str(tmp_path)], NotImplementedError, "orbax"),
+                               (["--devices", "3"], ValueError, "split evenly")):
+        with pytest.raises(error, match=item):
             evaluate_torch.main(base + flags)
 
 

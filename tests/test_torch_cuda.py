@@ -651,3 +651,18 @@ def test_bf16_forward_on_card_matches_f32(device, rng, model_type, cfg_name):
     assert torch.nn.functional.cosine_similarity(d16, d32, dim=-1).min().item() >= 0.999
     for a, b in zip(getattr(outs[0], "center_idx_origin", ()), getattr(outs[1], "center_idx_origin", ())):
         assert torch.equal(a, b)
+
+
+def test_sharded_knn_over_two_ranks_on_one_card(device, rng):
+    """``parallel.sharded_knn`` over two gloo ranks sharing the card: each
+    rank's K2 on its half of the points, the lists merged, equals K2 on the
+    whole cloud, indices and distances bit for bit, on both ranks."""
+    from patchaugnet_tpu_torch import parallel
+
+    import torch_parallel_worker
+
+    xyz = rng.rand(2, 4096, 3).astype(np.float32)
+    q = xyz[:, ::4].copy()
+    for idx, d2, ref_idx, ref_d2 in parallel.spawn(torch_parallel_worker.knn_on_one_card, 2, args=(xyz, q, 20),
+                                                    platform="gpu", share_device=True):
+        assert torch.equal(idx, ref_idx) and torch.equal(d2, ref_d2)

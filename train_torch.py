@@ -20,8 +20,16 @@ checkpoint per epoch and an eval every ``EVAL_EVERY_N_EPOCHS`` (1).
 ``utils.flops``: products and convolutions only). ``--precision bfloat16``
 trains at that compute dtype (``COMPUTE_DTYPE``: the feature path in bf16,
 parameters, optimizer state and BatchNorm statistics f32); ``--remat``
-recomputes the forward in the backward (``REMAT``). Not ported, refused
-with the ROADMAP item that brings it: ``--devices`` above 1 (A11).
+recomputes the forward in the backward (``REMAT``). ``--devices N`` trains
+data-parallel over N ranks (``parallel.build_parallel_train_step``), one
+process each: every rank draws the same tuple batch from the seed and
+takes its rows of it, ``TRAIN_BATCH_SIZE`` is raised until the flattened
+batch splits evenly, as ``train.py`` does, and rank 0 alone logs, writes
+the events and the checkpoints and runs the per-epoch eval on its card.
+The ranks use NCCL on cards of their own, gloo with ``--platform cpu``,
+and gloo on one card with ``--share-device``. TruncatedSmoothAP
+(MinkLoc3Dv2) trains on one device: ``--devices`` above 1 is refused
+(``train.py`` trains it on one device without a word; ROADMAP C).
 
 Usage:
   python train_torch.py --config configs/patch_aug_net.yaml --dataset oxford
@@ -33,6 +41,10 @@ Usage:
       --platform cpu --epochs 1 --max-batches 2
   python train_torch.py --config configs/tiny_smoke.yaml --dataset synthetic \
       --platform cpu --epochs 1 --max-batches 2 --precision bfloat16 --remat
+  python train_torch.py --config configs/tiny_smoke.yaml --dataset synthetic \
+      --platform cpu --epochs 1 --max-batches 2 --devices 2
+  python train_torch.py --config configs/patch_aug_net.yaml --dataset synthetic \
+      --epochs 1 --max-batches 2 --devices 2 --share-device   # two ranks on one card
 """
 import argparse
 import os
@@ -54,7 +66,9 @@ def get_args(argv=None):
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--eval", action="store_true", help="evaluation only")
     p.add_argument("--devices", type=int, default=None,
-                   help="data-parallel device count (only 1 is ported)")
+                   help="data-parallel device count: one rank per device")
+    p.add_argument("--share-device", action="store_true",
+                   help="with --devices above the card count, put the ranks on the cards in turn (over gloo)")
     p.add_argument("--epochs", type=int, default=None, help="override MAX_EPOCH")
     p.add_argument("--max-batches", type=int, default=None,
                    help="cap batches per epoch (smoke runs)")
@@ -104,23 +118,81 @@ def build_cfg(args):
     return cfg
 
 
-def refuse_unported(args):
-    """Raise ``NotImplementedError`` for what the port does not have yet."""
-    if args.devices is not None and args.devices > 1:
-        raise NotImplementedError("--devices above 1: data-parallel training is not ported yet (ROADMAP A11)")
+def parallel_batch(cfg, devices: int) -> None:
+    """Raise ``TRAIN_BATCH_SIZE`` until the flattened tuple batch splits
+    evenly over ``devices`` (``train.py:161-171``); refuse SmoothAP."""
+    if cfg.get("LOSS_FUNCTION", "").lower() == "truncatedsmoothap":
+        raise ValueError("--devices above 1 with LOSS_FUNCTION truncatedsmoothap: the SmoothAP trainer "
+                         "(MinkLoc3Dv2) runs on one device (train.py trains it on one device whatever --devices "
+                         "says; ROADMAP C). Data-parallel training (ROADMAP A11) takes the tuple losses.")
+    tuple_size = 1 + cfg["TRAIN_POSITIVES_PER_QUERY"] + cfg["TRAIN_NEGATIVES_PER_QUERY"] + 1
+    while (cfg["TRAIN_BATCH_SIZE"] * tuple_size) % devices:
+        cfg["TRAIN_BATCH_SIZE"] += 1
+
+
+def _rank_logger(rank: int):
+    """A silent logger for the ranks other than 0."""
+    import logging
+
+    logger = logging.getLogger(f"patchaugnet_tpu_torch.rank{rank}")
+    logger.disabled = True
+    return logger
+
+
+def _rank_step(model, cfg, mesh):
+    """The data-parallel step behind the loop's ``step(state, clouds, corr,
+    mask)``: this rank's rows of the batch to its device
+    (``host_batch_slice``, ``make_global_batch``), the whole batch's
+    tables."""
+    from patchaugnet_tpu_torch import parallel
+
+    pstep = parallel.build_parallel_train_step(model, cfg, mesh)
+
+    def step(state, clouds, corr, cloud_mask):
+        rows = parallel.host_batch_slice(clouds.shape[0], mesh.rank, mesh.size)
+        return pstep(state, parallel.make_global_batch(mesh, clouds[rows]), corr, cloud_mask[rows])
+
+    return step
+
+
+def _train_rank(args, cfg):
+    """One rank of ``--devices N``: its mesh, then the run; returns what
+    pickles of it (the config, the summaries, the model's state on the
+    CPU)."""
+    from patchaugnet_tpu_torch import parallel
+
+    mesh = parallel.make_mesh()
+    run = _train(args, cfg, mesh.device, mesh)
+    return {"cfg": run["cfg"], "summaries": run["summaries"], "rank": mesh.rank,
+            "model": {k: v.detach().cpu() for k, v in run["state"].model.state_dict().items()}}
 
 
 def main(argv=None):
     """Train (or with ``--eval`` evaluate) as ``train.py`` does. Returns the
     run: ``cfg``, ``state``, ``train_ds``, ``test_ds``, ``forward``, the
-    per-epoch ``summaries`` and, with ``--eval``, the eval's ``result``."""
+    per-epoch ``summaries`` and, with ``--eval``, the eval's ``result``.
+    With ``--devices`` above 1 it returns rank 0's ``cfg`` and
+    ``summaries`` and, under ``ranks``, every rank's ``model`` state on
+    the CPU."""
     args = get_args(argv)
     from patchaugnet_tpu_torch.serving import platform_device
 
     device = platform_device(args.platform)
     cfg = build_cfg(args)
-    refuse_unported(args)
+    devices = args.devices or 1
+    if devices > 1 and not cfg["eval"]:
+        from patchaugnet_tpu_torch import parallel
 
+        parallel_batch(cfg, devices)
+        ranks = parallel.spawn(_train_rank, devices, args=(args, cfg), platform=args.platform,
+                               share_device=args.share_device)
+        return {"cfg": ranks[0]["cfg"], "summaries": ranks[0]["summaries"], "ranks": ranks}
+    return _train(args, cfg, device)
+
+
+def _train(args, cfg, device, mesh=None):
+    """The run on ``device``; with a ``mesh``, this rank's part of the
+    data-parallel run."""
     import numpy as np
     import torch
 
@@ -129,16 +201,22 @@ def main(argv=None):
     from patchaugnet_tpu_torch.nn import training_init_
     from patchaugnet_tpu_torch.utils import MetricsWriter, get_logger
 
-    os.makedirs(cfg["save_path"], exist_ok=True)
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        os.makedirs(cfg["save_path"], exist_ok=True)
     seed = cfg.get("MANUAL_SEED", 123)
     # the host's draws for the correspondence tables and the mining (the
-    # JAX CLI seeds the global ``random`` and ``np.random`` with this seed)
+    # JAX CLI seeds the global ``random`` and ``np.random`` with this seed);
+    # every rank draws the same
     rng, np_rng = random.Random(seed), np.random.RandomState(seed)
 
-    logger = get_logger(cfg["event_dir"])
+    logger = get_logger(cfg["event_dir"]) if lead else _rank_logger(mesh.rank)
     logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    if mesh is not None:
+        logger.info(f"data-parallel mesh over {mesh.size} devices ({torch.distributed.get_backend()}), "
+                    f"TRAIN_BATCH_SIZE {cfg['TRAIN_BATCH_SIZE']} (the flattened batch splits evenly)")
     logger.info(cfg)
-    writer = MetricsWriter(cfg["event_dir"])
+    writer = MetricsWriter(cfg["event_dir"]) if lead else None
 
     # the patch branch is PatchAugNet's: other models ignore the patch flags
     use_patches = cfg["model_type"] == "patch_aug_net" and bool(
@@ -183,7 +261,7 @@ def main(argv=None):
             positives_per_query=cfg.get("positives_per_query", 4))
     state = train.create_train_state(model, cfg, steps_per_epoch=steps_per_epoch, device=device, tx=tx)
     logger.info(f"Parameters: {sum(p.numel() for p in state.model.parameters()):,}")
-    if args.print_flops:
+    if args.print_flops and lead:
         # the reference prints fvcore's GFLOPs on a 4 x 4096 x 3 probe at
         # startup (train_place_recognition.py:551-553)
         from patchaugnet_tpu_torch.utils import flops, parameter_count
@@ -202,6 +280,8 @@ def main(argv=None):
         logger.info(f"Resumed from {path} at epoch {starting_epoch}")
 
     step = None if use_smoothap else train.build_train_step(state.model, cfg)
+    if mesh is not None:
+        step = _rank_step(state.model, cfg, mesh)
     forward = train.build_forward_fn(state.model, device)
     center_fn = train.build_center_fn(cfg["SAMPLING"][0], device) if use_patches else None
     run = {"cfg": cfg, "state": state, "train_ds": train_ds, "test_ds": test_ds, "forward": forward,
@@ -241,15 +321,16 @@ def main(argv=None):
             state, step, train_ds, cfg, epoch, rng, np_rng,
             forward_fn=forward, center_fn=center_fn, writer=writer,
             logger=logger, total_iterations=total_iterations,
-            max_batches=args.max_batches, save_dir=cfg["save_path"],
+            max_batches=args.max_batches, save_dir=cfg["save_path"] if lead else None,
         )
         state = summary.pop("state")
         total_iterations = summary["total_iterations"]
         run["summaries"].append(summary)
         logger.info(f"epoch {epoch}: {summary}")
-        if eval_every and (epoch + 1) % eval_every == 0 and len(test_ds) > 0:
+        if lead and eval_every and (epoch + 1) % eval_every == 0 and len(test_ds) > 0:
             train.evaluate(forward, test_ds, logger=logger, writer=writer, epoch=epoch)
-    writer.close()
+    if writer is not None:
+        writer.close()
     run["state"] = state
     return run
 
