@@ -157,7 +157,8 @@ Phases, each fatal on failure:
    rank under NCCL in this process: the flagship data-parallel step at 72
    clouds with ``A2A_MAX_CLOUDS`` 8 against ``build_train_step`` from the
    same state, deterministic algorithms on both (the total and the max
-   parameter difference printed; both within 1e-5); (b) two ranks sharing
+   parameter difference printed; both within 1e-5; the launches counted
+   around the data-parallel step alone); (b) two ranks sharing
    the card over gloo (``parallel.spawn``): the data-parallel step at 36
    clouds a rank, the patch rows from both ranks (SGD, deterministic
    algorithms: total within 1e-5 relative, parameters and statistics
@@ -168,11 +169,13 @@ Phases, each fatal on failure:
    K2's and K1's), the point-sharded PatchAugNet and PPT-Net descriptors
    at B=32 (within 1e-5 of ``build_forward_fn``), one
    ``build_sharded_train_step`` step of PPT-Net at 18 clouds (total within
-   1e-5, parameters within 1e-2 of the largest update); each with its ms
-   beside the single-process figure and its launches per rank; (c)
-   ``train_torch.py`` for one batch and ``evaluate_torch.py`` at
+   1e-5, every parameter's gradient within 1e-2 in relative L2, the
+   operations that ran without a deterministic implementation named);
+   each with its ms beside the single-process figure and its launches per
+   rank; (c) ``train_torch.py`` for one batch and ``evaluate_torch.py`` at
    ``--devices 2 --share-device`` (the ranks' models equal; the
-   descriptors within 1e-5 of ``--devices 1``'s);
+   descriptors within 1e-5 of ``--devices 1``'s, and every query whose
+   first neighbour differs a tie within what that difference can swap);
 12. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
@@ -189,6 +192,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 32
@@ -249,12 +253,11 @@ PARALLEL_EVAL_BATCH = 100
 PARALLEL_REPS = 3
 PARALLEL_RTOL, PARALLEL_ATOL = 1e-5, 1e-5     # a step's total (relative) and parameters and statistics (absolute)
 PARALLEL_DESC_TOL = 1e-5                      # sharded descriptors and features against the single-process forward
-# the point-sharded PPT-Net step's parameters against the single-process
-# step's, relative to the largest update: its loss (about 92 on random
-# weights) makes gradients large enough that the order of their sums shows
-# (measured 5.1e-4 at a largest update of 2.63; the JAX suite bounds this
-# step's gradients by 1e-1 in relative L2)
-PPT_UPDATE_RTOL = 1e-2
+# a step's gradients against the single-process step's, leaf by leaf in
+# relative L2, a leaf's norm floored at 1e-4 of the largest: the CPU
+# suite's GRAD_RTOL (tests/test_torch_parallel.py, measured 2.4e-4 there
+# on the point-sharded PPT-Net step); a dropped or mis-scaled leaf reads 1
+PARALLEL_GRAD_RTOL = 1e-2
 
 
 def say(*parts):
@@ -2378,19 +2381,46 @@ def ranks_agree(torch, model, mesh):
     return bool(torch.equal(hi, lo))
 
 
-def step_against_single(torch, train, state, cfg, run_parallel, clouds, corr, mask):
+def step_against_single(torch, mods, records, train, state, cfg, run_parallel, clouds, corr, mask):
     """One step through ``run_parallel(state)`` and, from a deep copy made
     before it, one ``train.build_train_step`` step on the whole batch here:
     (total rel err, parameters max abs err, statistics max abs err, the
-    parallel metrics)."""
+    parallel metrics, the parallel step's kernel launches). The launches
+    are counted around the parallel step alone."""
     single = copy.deepcopy(state)
-    state, metrics = run_parallel(state)
+    (state, metrics), launches, _ = counted(torch, mods, records, lambda: run_parallel(state))
     single, want = train.build_train_step(single.model, cfg)(single, clouds, corr, mask)
     torch.cuda.synchronize()
     rel = abs(metrics["total"].item() - want["total"].item()) / abs(want["total"].item())
     params = max((a - b).abs().max().item() for a, b in zip(state.model.parameters(), single.model.parameters()))
     stats = max((a - b).abs().max().item() for a, b in zip(state.model.buffers(), single.model.buffers()))
-    return rel, params, stats, {k: v.item() for k, v in metrics.items()}
+    return rel, params, stats, {k: v.item() for k, v in metrics.items()}, launches
+
+
+def leaf_errors(torch, got, want):
+    """(worst leaf, its error, the leaf errors above 1e-5) of the
+    gradients of ``got`` against ``want`` (modules), each leaf in relative
+    L2, its norm floored at 1e-4 of the largest."""
+    want = {k: p.grad.double() for k, p in want.named_parameters()}
+    got = {k: p.grad.double() for k, p in got.named_parameters()}
+    floor = 1e-4 * max(g.norm().item() for g in want.values())
+    errors = {k: (got[k] - g).norm().item() / max(g.norm().item(), floor) for k, g in want.items()}
+    worst = max(errors, key=errors.get)
+    return worst, errors[worst], {k: round(v, 8) for k, v in errors.items() if v > 1e-5}
+
+
+@contextlib.contextmanager
+def nondeterministic_ops(found):
+    """Records in ``found`` the operations that warn, under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, that they
+    ran without a deterministic implementation."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        yield
+    for w in caught:
+        text = str(w.message)
+        if "deterministic" in text:
+            found.add(text.split(" does not have a deterministic")[0][:120])
 
 
 def parallel_rank():
@@ -2478,21 +2508,27 @@ def parallel_rank():
                                       pcfg, device=dev)
     sstep = parallel.build_sharded_train_step(pcfg, mesh, axis_name="data")
     torch.use_deterministic_algorithms(True, warn_only=True)
+    sharded_ops, single_ops = set(), set()
     try:
         single = copy.deepcopy(pstate) if lead else None
         before = [p.detach().clone() for p in pstate.model.parameters()]
-        (pstate, pmetrics), out["counts"]["sharded pptnet step"], out["ms"]["sharded pptnet step"] = counted(
-            torch, mods, records, lambda: sstep(pstate, shard(pclouds)))
+        with nondeterministic_ops(sharded_ops):
+            (pstate, pmetrics), out["counts"]["sharded pptnet step"], out["ms"]["sharded pptnet step"] = counted(
+                torch, mods, records, lambda: sstep(pstate, shard(pclouds)))
         if lead:
-            single, want = train.build_train_step(single.model, pcfg)(single, pclouds, pcorr, pmask)
+            with nondeterministic_ops(single_ops):
+                single, want = train.build_train_step(single.model, pcfg)(single, pclouds, pcorr, pmask)
+            worst, worst_err, leaves = leaf_errors(torch, pstate.model, single.model)
             out["checks"]["pptnet step"] = {
                 "total": pmetrics["total"].item(), "single total": want["total"].item(),
                 "rel": abs(pmetrics["total"].item() - want["total"].item()) / abs(want["total"].item()),
+                "worst leaf": worst, "leaf err": worst_err, "leaves above 1e-5": leaves,
                 "params": max((a - b).abs().max().item()
                               for a, b in zip(pstate.model.parameters(), single.model.parameters())),
                 "update": max((a - b).abs().max().item() for a, b in zip(single.model.parameters(), before)),
                 "stats": max((a - b).abs().max().item()
-                             for a, b in zip(pstate.model.buffers(), single.model.buffers()))}
+                             for a, b in zip(pstate.model.buffers(), single.model.buffers())),
+                "nondeterministic ops": {"sharded": sorted(sharded_ops), "single": sorted(single_ops)}}
             del single
     finally:
         torch.use_deterministic_algorithms(False)
@@ -2522,6 +2558,36 @@ def parallel_rank():
         got = descs[name][0]
         c[f"sharded {name}"] = {"desc": (got - want).abs().max().item(), "finite": bool(torch.isfinite(got).all())}
     return out
+
+
+def top1_flips(np, retrieval, scene, a, b, dev):
+    """The eval's queries (its trip pairs, as ``recall_precision_all``
+    pairs them) whose nearest database record differs between the
+    descriptors ``a`` and ``b``: (query, a's record, b's record, the gap of
+    their squared distances to the query under ``a``, in f64)."""
+    skip, trips = scene.data_cfg["skip_trip_itself"], scene.data_cfg["test_query_trips"]
+    rows = scene.trip_indices()
+    flips = []
+    for rt, db in enumerate(rows):
+        for qt, qs in enumerate(rows):
+            if (skip and qt == rt) or (trips is not None and scene.trip_names[qt] not in trips):
+                continue
+            first = 1 if qt == rt else 0                 # the query itself leads its own trip's list
+            picks = [retrieval.topk_neighbors(d[qs], d[db], first + 1, device=dev)[1][:, first] for d in (a, b)]
+            for i in np.nonzero(picks[0] != picks[1])[0]:
+                q, x, y = a[qs[i]].astype(np.float64), a[db[picks[0][i]]], a[db[picks[1][i]]]
+                flips.append((qs[i], db[picks[0][i]], db[picks[1][i]],
+                              float(((q - y) ** 2).sum() - ((q - x) ** 2).sum())))
+    return flips
+
+
+def tie_bound(err, dim):
+    """How far apart two unit descriptors' squared distances to a query can
+    lie and still swap between two runs whose descriptors differ by at most
+    ``err`` per component: each distance moves by at most
+    8 err sqrt(D) + 4 err^2 D, and each run's f32 search rounds a distance
+    by at most (D + 2) 2^-24 4."""
+    return 2 * (8 * err * dim ** 0.5 + 4 * err * err * dim) + 2 * 2 * (dim + 2) * F32_UNIT * 4
 
 
 def phase_parallel(torch, mods, records, dev):
@@ -2557,14 +2623,12 @@ def phase_parallel(torch, mods, records, dev):
         step = parallel.build_parallel_train_step(state.model, cfg, mesh)
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            reset_counts(mods, records)
-            rel, params, stats, terms = step_against_single(torch, train, state, cfg,
-                                                            lambda s: step(s, clouds, corr, mask), clouds, corr, mask)
+            rel, params, stats, terms, counts = step_against_single(
+                torch, mods, records, train, state, cfg, lambda s: step(s, clouds, corr, mask), clouds, corr, mask)
         finally:
             torch.use_deterministic_algorithms(False)
-        counts = read_counts(mods, records)
-        check_launches(counts, {k: 2 * v for k, v in STEP_LAUNCHES.items()}, "world of one: both steps")
-        paths.append({k: v // 2 for k, v in counts.items()})
+        check_launches(counts, STEP_LAUNCHES, "world of one: the data-parallel step")
+        paths.append(counts)
         backend = dist.get_backend()
     finally:
         dist.destroy_process_group()
@@ -2593,7 +2657,7 @@ def phase_parallel(torch, mods, records, dev):
         failures.append(f"data-parallel step {dp}")
     if not all(v > 0 and np.isfinite(v) for v in dp["terms"].values()):
         failures.append(f"data-parallel step terms {dp['terms']}")
-    if pp["rel"] > PARALLEL_RTOL or pp["params"] > PPT_UPDATE_RTOL * pp["update"] or pp["stats"] > PARALLEL_ATOL:
+    if pp["rel"] > PARALLEL_RTOL or pp["leaf err"] > PARALLEL_GRAD_RTOL or pp["stats"] > PARALLEL_ATOL:
         failures.append(f"PPT-Net sharded step {pp}")
     if not (c["dp ranks agree"] and c["pptnet ranks agree"] and ranks[1]["checks"]["dp ranks agree"]):
         failures.append("the ranks' parameters differ")
@@ -2623,8 +2687,10 @@ def phase_parallel(torch, mods, records, dev):
              f"max abs err {c['sharded patchaugnet']['desc']:.3g}, {ms['sharded patchaugnet']:.2f} ms against "
              f"{ms['patchaugnet single']:.2f} ms; PPT-Net {c['sharded pptnet']['desc']:.3g}, "
              f"{ms['sharded pptnet']:.2f} ms against {ms['pptnet single']:.2f} ms; PPT-Net sharded step total "
-             f"rel err {pp['rel']:.3g}, parameters {pp['params']:.3g} (largest update {pp['update']:.3g}), "
-             f"statistics {pp['stats']:.3g}, "
+             f"rel err {pp['rel']:.3g}, gradients leaf by leaf in relative L2 at most {pp['leaf err']:.3g} "
+             f"({pp['worst leaf']}; leaves above 1e-5: {pp['leaves above 1e-5']}), parameters {pp['params']:.3g} "
+             f"(largest update {pp['update']:.3g}), statistics {pp['stats']:.3g}, operations without a deterministic "
+             f"implementation {pp['nondeterministic ops']}, "
              f"{ms['sharded pptnet step']:.1f} ms for the step (deterministic algorithms); launches per rank "
              + ", ".join(f"{k} {v}" for k, v in ranks[0]["counts"].items()))
 
@@ -2645,14 +2711,26 @@ def phase_parallel(torch, mods, records, dev):
         two = evaluate_torch.main(argv + ["--devices", "2", "--share-device"])
         eval_s = time.perf_counter() - t0
         one = evaluate_torch.main(argv)
-        err = float(np.abs(two["global_descs"] - one["test_ds"].scene.global_descs).max())
+        scene = one["test_ds"].scene
+        err = float(np.abs(two["global_descs"] - scene.global_descs).max())
         if err > PARALLEL_DESC_TOL or not np.array_equal(two["global_descs"], two["ranks"][1]["global_descs"]):
             raise AssertionError(f"evaluate_torch.py --devices 2: descriptors max abs err {err} against --devices 1, "
                                  f"or the ranks' differ")
+        # recall@1 may differ only where a query's two nearest records are
+        # a tie within what the descriptors' difference can swap
+        from patchaugnet_tpu_torch.data import retrieval
+
+        flips = top1_flips(np, retrieval, scene, scene.global_descs, two["global_descs"], dev)
+        tie = tie_bound(err, scene.global_descs.shape[1])
+        if any(gap > tie for *_, gap in flips) or (not flips and two["recall_at_1"] != one["recall_at_1"]):
+            raise AssertionError(f"evaluate_torch.py --devices 2: recall@1 {two['recall_at_1']} against "
+                                 f"{one['recall_at_1']}, first neighbours that differ {flips} (ties within {tie:.3g})")
     measured("phase 11 (c): the CLIs at --devices 2 --share-device",
              f"train_torch.py one batch of {run['cfg']['TRAIN_BATCH_SIZE']} tuples over two ranks: total {loss:.6f}, "
              f"the ranks' models equal, {train_s:.1f} s; evaluate_torch.py: descriptors max abs err {err:.3g} against "
-             f"--devices 1, recall@1 {two.get('recall_at_1')} (--devices 1: {one.get('recall_at_1')}), {eval_s:.1f} s")
+             f"--devices 1, recall@1 {two['recall_at_1']} (--devices 1: {one['recall_at_1']}); first neighbours that "
+             f"differ (query, --devices 1's, --devices 2's, the gap of their squared distances) {flips}, each a tie "
+             f"within {tie:.3g}; {eval_s:.1f} s")
     say(f"phase 11 (parallel): {time.perf_counter() - t_phase:.1f} s")
     return paths
 

@@ -29,7 +29,6 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
-from scipy.spatial import cKDTree
 
 from ..losses.patch_contrast import PatchCorrespondences
 from . import query_overlap_pb2
@@ -90,6 +89,8 @@ def synthetic_overlaps(
     """Geometry-derived overlap entries for clouds with known overlap
     (synthetic scene / tests). near = positive points within ``r_near``
     of the query point; far = a sample beyond ``r_far``."""
+    from scipy.spatial import cKDTree   # imported here: scipy.spatial takes a second
+
     tree = cKDTree(pos_cloud)
     picks = rng.choice(len(query_cloud), size=min(n_entries, len(query_cloud)), replace=False)
     near_all = tree.query_ball_point(query_cloud[picks], r=r_near, return_sorted=True)

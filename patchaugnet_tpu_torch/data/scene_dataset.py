@@ -41,7 +41,6 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Set, Tupl
 
 import numpy as np
 import torch
-from scipy.spatial import cKDTree
 
 from ..utils.timestamps import timestamp2str
 from . import retrieval
@@ -320,6 +319,8 @@ class SceneDataset:
         rng = rng or random
         cfg = self.data_cfg
         xy = self.records.xy()
+        from scipy.spatial import cKDTree   # imported here: scipy.spatial takes a second
+
         tree = cKDTree(xy)
         n_trips = len(self.trip_names)
         for qt in range(n_trips):
@@ -518,12 +519,14 @@ class SceneDataset:
         num_neg: int,
         other_neg: bool = True,
         rng: Optional[random.Random] = None,
+        load: bool = True,
     ) -> Optional[Dict]:
         """Sample a (query, positives, negatives, other_neg) tuple.
 
         Returns None for faulty tuples (insufficient pos/neg or missing
         other_neg — the reference *skips* those batches,
-        train_place_recognition.py:223-256).
+        train_place_recognition.py:223-256). ``load=False`` draws the same
+        tuple and leaves its clouds and metas unloaded (None).
         """
         rng = rng or random
         t = self.get_tuple(q_idx, -1, self.data_cfg["skip_trip_itself"])
@@ -548,7 +551,7 @@ class SceneDataset:
                 return None
             o_idx = rng.choice(candidates)
         indices = [q_idx] + pos + neg + ([o_idx] if o_idx is not None else [])
-        clouds, metas = self.get_clouds(indices)
+        clouds, metas = self.get_clouds(indices) if load else (None, None)
         return {
             "indices": ([q_idx], pos, neg, [o_idx] if o_idx is not None else []),
             "clouds": clouds,            # (1+P+N+1, num_points, 3)
@@ -672,6 +675,7 @@ class SceneDataset:
         batch_size: int = 100,
         stat_time: bool = False,
         save_model_type: Optional[str] = None,
+        rows: Optional[slice] = None,
     ) -> Optional[Dict[str, float]]:
         """Embed the whole database.
 
@@ -688,7 +692,13 @@ class SceneDataset:
         ``local/<i>.pickle`` holds ``(l_pos (K, 3), l_desc (K, C),
         norm_meta)`` with l_pos = the (normalised) input cloud gathered
         at the level-1 centre indices.
+
+        ``rows``: load only those rows of each (padded) batch, and
+        ``forward_fn`` returns the whole batch's outputs from them (a
+        sharded forward, one rank's rows in); no store is written then.
         """
+        if rows is not None and save_model_type is not None:
+            raise ValueError("the local store needs each batch's clouds whole: save_model_type with rows=None")
         n = len(self.records)
         descs = []
         times = []
@@ -707,12 +717,15 @@ class SceneDataset:
         for bi, s in enumerate(starts + [None]):
             if s is not None:
                 idx = list(range(s, min(s + batch_size, n)))
-                clouds, metas = self.get_clouds(idx)
                 pad = batch_size - len(idx)
-                if pad:
-                    clouds = np.concatenate(
-                        [clouds, np.repeat(clouds[-1:], pad, 0)]
-                    )
+                if rows is not None:
+                    clouds, metas = self.get_clouds((idx + idx[-1:] * pad)[rows])
+                else:
+                    clouds, metas = self.get_clouds(idx)
+                    if pad:
+                        clouds = np.concatenate(
+                            [clouds, np.repeat(clouds[-1:], pad, 0)]
+                        )
                 t0 = time.perf_counter()
                 handle = forward_fn(clouds)
             else:

@@ -39,7 +39,9 @@ class TupleBatch:
 
     clouds: ``(B * tuple_size, N, 3)`` float32 — order per tuple is
     [query, positives..., negatives..., other_neg], tuples concatenated
-    (matches run_model's view, train_place_recognition.py:148-149).
+    (matches run_model's view, train_place_recognition.py:148-149); with
+    ``rows`` set, only those rows of it. ``total`` is the flattened
+    batch's cloud count.
     """
 
     clouds: np.ndarray
@@ -48,6 +50,12 @@ class TupleBatch:
     num_neg: int
     query_indices: List[int]
     nn_dict: Dict[Tuple[int, int], List[OverlapEntry]]
+    rows: Optional[slice] = None
+    total: int = -1
+
+    def __post_init__(self):
+        if self.total < 0:
+            self.total = self.clouds.shape[0]
 
     @property
     def tuple_size(self) -> int:
@@ -112,16 +120,28 @@ class PlaceRecognitionDataset:
         return len(self.scene.records)
 
     # ------------------------------------------------------- batching
-    def sample_batch(self, query_indices: Sequence[int]) -> Optional[TupleBatch]:
+    def sample_batch(self, query_indices: Sequence[int], rows: Optional[slice] = None) -> Optional[TupleBatch]:
+        """The batch of these queries' tuples. ``rows``: load only those
+        rows of the flattened batch (a data-parallel rank's); every tuple is
+        drawn all the same, so the draws and ``nn_dict`` are the whole
+        batch's."""
+        if rows is not None and self.augmentation:
+            raise ValueError("augmentation draws for the whole batch's clouds: sample it whole (rows=None)")
         tuples = []
         for q in query_indices:
             t = self.scene.get_training_tuple(
-                q, self.num_pos, self.num_neg, self.other_neg, rng=self.rng
+                q, self.num_pos, self.num_neg, self.other_neg, rng=self.rng, load=rows is None
             )
             if t is None:
                 return None                                # skip faulty batch
             tuples.append(t)
-        clouds = np.concatenate([t["clouds"] for t in tuples])  # (B*T, N, 3)
+        if rows is None:
+            clouds = np.concatenate([t["clouds"] for t in tuples])  # (B*T, N, 3)
+            total = clouds.shape[0]
+        else:
+            flat = [i for t in tuples for part in t["indices"] for i in part]
+            clouds, _ = self.scene.get_clouds(flat[rows])
+            total = len(flat)
         if self.augmentation:
             clouds = self._augment(clouds)
         nn_dict: Dict[Tuple[int, int], List[OverlapEntry]] = {}
@@ -134,6 +154,8 @@ class PlaceRecognitionDataset:
             num_neg=self.num_neg,
             query_indices=[t["indices"][0][0] for t in tuples],
             nn_dict=nn_dict,
+            rows=rows,
+            total=total,
         )
 
     def _augment(self, clouds: np.ndarray) -> np.ndarray:
@@ -188,23 +210,24 @@ class PlaceRecognitionDataset:
         }
 
     def iter_epoch(
-        self, batch_size: int, shuffle: bool = True
+        self, batch_size: int, shuffle: bool = True, rows: Optional[slice] = None
     ) -> Iterator[TupleBatch]:
+        """The epoch's batches; ``rows`` as :meth:`sample_batch`."""
         order = list(range(len(self)))
         if shuffle:
             self.rng.shuffle(order)
         for s in range(0, len(order) - batch_size + 1, batch_size):
-            batch = self.sample_batch(order[s : s + batch_size])
+            batch = self.sample_batch(order[s : s + batch_size], rows)
             if batch is not None:
                 yield batch
 
     # ------------------------------------------------------ delegation
     def update_global_descs(
         self, forward_fn, batch_size: int = 100, stat_time=False,
-        save_model_type=None,
+        save_model_type=None, rows: Optional[slice] = None,
     ):
         return self.scene.make_descs(
-            forward_fn, batch_size, stat_time, save_model_type=save_model_type
+            forward_fn, batch_size, stat_time, save_model_type=save_model_type, rows=rows
         )
 
     def clear_global_descs(self):

@@ -74,29 +74,14 @@ def batch_stats_group(group, size: int) -> Iterator[None]:
         _stats_group = previous
 
 
-class _GroupSum(torch.autograd.Function):
-    """``all_reduce`` (sum) whose backward sums the gradients over the
-    group the same way."""
-
-    @staticmethod
-    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
-        import torch.distributed as dist
-
-        ctx.group = group
-        t = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(t, group=group)
-        return t
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        return _GroupSum.apply(grad, ctx.group), None
-
-
 def group_sum(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed over the ranks of ``group`` (one ``all_reduce``), as a
-    new tensor. Where ``t`` needs a gradient the sum carries autograd: its
-    backward sums the gradients over the group."""
-    return _GroupSum.apply(t, group)
+    new tensor. The sum carries autograd
+    (``torch.distributed.nn.functional.all_reduce``): its backward sums the
+    gradients over the group."""
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(t, group=group)
 
 
 def group_max(t: torch.Tensor, group) -> torch.Tensor:

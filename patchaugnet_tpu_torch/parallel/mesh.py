@@ -222,17 +222,27 @@ def shard_batch(mesh: Mesh, arr, axis_name: str = "data") -> torch.Tensor:
 
 def gather_rows(local: torch.Tensor, mesh: Mesh, axis_name: str = "data", dim: int = 0) -> torch.Tensor:
     """Every rank's ``local`` along ``dim``, concatenated in rank order
-    along ``axis_name`` (``all_gather``, tiled). Each rank contributes
-    its block at its offset and exact zeros elsewhere to one sum, so the
-    values are the bits each rank holds; with autograd each rank gets the
-    sum of every rank's gradient of its block."""
-    size, i = mesh.shape[axis_name], mesh.index(axis_name)
-    shape = list(local.shape)
-    blocks = []
-    for count in (i, size - 1 - i):
-        shape[dim] = local.shape[dim] * count
-        blocks.append(local.new_zeros(shape))
-    return group_sum(torch.cat([blocks[0], local, blocks[1]], dim), mesh.group(axis_name))
+    along ``axis_name``: the bits each rank holds.
+
+    Without autograd it is one ``all_gather_into_tensor``. Where ``local``
+    needs a gradient, each rank puts its block at its offset, exact zeros
+    elsewhere, into one sum (:func:`nn.core.group_sum`), whose backward is
+    an ``all_reduce`` that gives each rank the sum of every rank's gradient
+    of its block. An all-gather's backward is a ``reduce_scatter``, which
+    gloo lacks; the gathers that carry a gradient are the train steps'
+    descriptors, kilobytes."""
+    group, size, i = mesh.group(axis_name), mesh.shape[axis_name], mesh.index(axis_name)
+    if torch.is_grad_enabled() and local.requires_grad:
+        shape = list(local.shape)
+        blocks = []
+        for count in (i, size - 1 - i):
+            shape[dim] = local.shape[dim] * count
+            blocks.append(local.new_zeros(shape))
+        return group_sum(torch.cat([blocks[0], local, blocks[1]], dim), group)
+    front = local.movedim(dim, 0).contiguous()
+    out = front.new_empty((size * front.shape[0], *front.shape[1:]))
+    dist.all_gather_into_tensor(out, front, group=group)
+    return out.movedim(0, dim)
 
 
 def select_rows(local: torch.Tensor, rows: torch.Tensor, mesh: Mesh, axis_name: str = "data") -> torch.Tensor:

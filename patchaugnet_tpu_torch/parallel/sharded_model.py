@@ -55,7 +55,6 @@ def sharded_fp_level(
     *,
     mesh: Mesh,
     axis_name: str = "points",
-    batch_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """One feature-propagation level with the UNKNOWN axis split along
     ``axis_name``: ``unknown_xyz`` / ``unknown_feats`` are this rank's
@@ -68,8 +67,8 @@ def sharded_fp_level(
     return fp_module(unknown_xyz, known_xyz, unknown_feats, known_feats)
 
 
-def _sharded_pyramid(model: nn.Module, x: torch.Tensor, mesh: Mesh, axis_name: str,
-                     batch_axis: Optional[str]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+def _sharded_pyramid(model: nn.Module, x: torch.Tensor, mesh: Mesh,
+                     axis_name: str) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """The descriptor and ``fp_features`` (coarse to fine, the finest this
     rank's shard) of a PatchAugNet or PPT-Net on this rank's point shard
     ``x``, in the mode the model is in."""
@@ -79,7 +78,7 @@ def _sharded_pyramid(model: nn.Module, x: torch.Tensor, mesh: Mesh, axis_name: s
     levels = sum(1 for name, _ in model.named_children() if name.startswith("sa"))
     sa0 = model.sa0
     xyz1, _, _, feats1 = sharded_sa_level(sa0.mlp, x, x, npoint=sa0.npoint, nsample=sa0.nsample, mesh=mesh,
-                                          axis_name=axis_name, batch_axis=batch_axis)
+                                          axis_name=axis_name)
     if sa0.sa is not None:
         feats1 = sa0.sa(feats1)
     l_xyz, l_feats = [x, xyz1], [x, feats1]
@@ -90,8 +89,7 @@ def _sharded_pyramid(model: nn.Module, x: torch.Tensor, mesh: Mesh, axis_name: s
     for i in range(levels - 1, 0, -1):
         l_feats[i] = getattr(model, f"fp{i}")(l_xyz[i], l_xyz[i + 1], l_feats[i], l_feats[i + 1])
     unknown = x if getattr(model, "use_origin_pc_in_fp", True) else None
-    l_feats[0] = sharded_fp_level(model.fp0, x, xyz1, unknown, l_feats[1], mesh=mesh, axis_name=axis_name,
-                                  batch_axis=batch_axis)
+    l_feats[0] = sharded_fp_level(model.fp0, x, xyz1, unknown, l_feats[1], mesh=mesh, axis_name=axis_name)
     fp_features = l_feats[levels - 1::-1]
     desc = model.aggregation(fp_features, groups=[None] * (levels - 1) + [mesh.group(axis_name)])
     if getattr(model, "use_normalize", False):
@@ -108,43 +106,31 @@ def sharded_patchaugnet_descriptor(
     mesh: Mesh,
     *,
     axis_name: str = "points",
-    batch_axis: Optional[str] = None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """PatchAugNet's eval forward over a point-sharded mesh.
+    """PatchAugNet's (or PPT-Net's: ``sharded_pptnet_descriptor``) eval
+    forward over a point-sharded mesh.
 
     Args:
-      model: a ``models.PatchAugNet`` on this rank's device (run in eval
-        mode; its mode is restored).
+      model: a ``models.PatchAugNet`` or ``models.PPTNet`` on this rank's
+        device (run in eval mode; its mode is restored). PPT-Net's SA0
+        runs its GroupSA on the pooled table, and its ``use_normalize``
+        tells ``pptnet_l2_norm``.
       x: this rank's ``(b, n / size, 3)`` shard of the clouds (n divisible
-        by the axis size; no 4096 cap).
-      batch_axis: the mesh axis splitting the batch, if any (``x`` is then
-        this rank's rows).
+        by the axis size; no 4096 cap), ``b`` its rows on a 2-D mesh.
 
-    Returns ``(desc, fp_features)`` as ``PatchAugNetOutput.global_desc`` /
-    ``.fp_features``: desc ``(b, OUTPUT_DIM)`` on every rank of the axis,
-    fp_features ``[(b, SAMPLING[1], C), (b, SAMPLING[0], C), (b, n / size,
-    C)]``, the last this rank's shard. ``KNN_APPROX_RECALL`` runs the exact
-    kNN, as everywhere in the port.
+    Returns ``(desc, fp_features)`` as the model's output's
+    ``global_desc`` / ``fp_features``: desc ``(b, OUTPUT_DIM)`` on every
+    rank of the axis, fp_features coarse to fine (PatchAugNet:
+    ``[(b, SAMPLING[1], C), (b, SAMPLING[0], C), (b, n / size, C)]``), the
+    last this rank's shard. ``KNN_APPROX_RECALL`` runs the exact kNN, as
+    everywhere in the port.
     """
     with _eval_mode(model):
-        return _sharded_pyramid(model, x, mesh, axis_name, batch_axis)
+        return _sharded_pyramid(model, x, mesh, axis_name)
 
 
-def sharded_pptnet_descriptor(
-    model: nn.Module,
-    x: torch.Tensor,
-    mesh: Mesh,
-    *,
-    axis_name: str = "points",
-    batch_axis: Optional[str] = None,
-) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """PPT-Net's eval forward over a point-sharded mesh, as
-    :func:`sharded_patchaugnet_descriptor` for the four-level pyramid
-    (``models.PPTNet``; its ``use_normalize`` tells ``pptnet_l2_norm``):
-    SA0 sharded with its GroupSA on the pooled table, FP0 on the shard,
-    the finest of the four SPVLAD scales summed over the axis."""
-    with _eval_mode(model):
-        return _sharded_pyramid(model, x, mesh, axis_name, batch_axis)
+# the same pyramid: PPT-Net's four levels and SPVLAD scales
+sharded_pptnet_descriptor = sharded_patchaugnet_descriptor
 
 
 def sharded_pointnetvlad_descriptor(
@@ -153,7 +139,6 @@ def sharded_pointnetvlad_descriptor(
     mesh: Mesh,
     *,
     axis_name: str = "points",
-    batch_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """PointNetVLAD's eval forward over a point-sharded mesh: the whole
     model on this rank's shard ``x`` ``(b, n / size, 3)``, its two

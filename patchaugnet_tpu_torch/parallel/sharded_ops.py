@@ -18,13 +18,14 @@ replicated along it. The results equal the single-device ops exactly:
   - :func:`sharded_gather`: each global row comes from its owner, the
     other ranks add exact zeros (one ``all_reduce``).
 
-``batch_axis`` names the mesh axis that splits the batch (the JAX 2-D
-``("data", "points")`` form): the inputs are then this rank's batch rows,
-and every collective runs within the ``axis_name`` sub-group.
+On a 2-D mesh (the JAX ``("data", "points")`` form) the inputs are this
+rank's rows of the batch, and every collective runs within the
+``axis_name`` sub-group (``Mesh.group``), so the batch axis needs no
+argument.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 from torch import nn
@@ -53,7 +54,6 @@ def sharded_knn(
     k: int,
     mesh: Mesh,
     axis_name: str = "data",
-    batch_axis: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN with the reference points split along ``axis_name``.
 
@@ -61,8 +61,6 @@ def sharded_knn(
       xyz: ``(b, shard_n, d)``: this rank's shard of the ``(b, n, d)``
         points.
       new_xyz: ``(b, m, d)`` queries, the same on every rank of the axis.
-      batch_axis: the mesh axis that splits the batch, if any (the inputs
-        are then this rank's rows).
     Returns ``(idx, d2)`` ``(b, m, k)``, int32 global indices and squared
     distances, equal to ``ops.knn`` on the whole cloud, on every rank of
     the axis.
@@ -100,7 +98,6 @@ def sharded_gather(
     idx: torch.Tensor,
     mesh: Mesh,
     axis_name: str = "data",
-    batch_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """``out[b, j, c] = features[b, idx[b, j], c]`` by global index from a
     table whose ``n`` axis is split along ``axis_name``: ``features`` is
@@ -122,12 +119,11 @@ def sharded_group(
     idx: torch.Tensor,
     mesh: Mesh,
     axis_name: str = "data",
-    batch_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """``out[b, j, s, c] = features[b, idx[b, j, s], c]``: the grouped form
     of :func:`sharded_gather` (``idx`` ``(b, m, k)``)."""
     b, m, k = idx.shape
-    flat = sharded_gather(features, idx.reshape(b, m * k), mesh, axis_name, batch_axis)
+    flat = sharded_gather(features, idx.reshape(b, m * k), mesh, axis_name)
     return flat.reshape(b, m, k, features.shape[-1])
 
 
@@ -136,7 +132,6 @@ def sharded_fps(
     m: int,
     mesh: Mesh,
     axis_name: str = "data",
-    batch_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """Exact FPS with the point axis split along ``axis_name``: ``xyz`` is
     this rank's ``(b, shard_n, 3)`` shard. Returns ``(b, m)`` int32 global
@@ -185,7 +180,6 @@ def sharded_sa_level(
     nsample: int,
     mesh: Mesh,
     axis_name: str = "points",
-    batch_axis: Optional[str] = "data",
     use_xyz: bool = True,
 ):
     """One set-abstraction level with the point axis split along
@@ -201,12 +195,12 @@ def sharded_sa_level(
     pooled)`` (``SALevelOutput``'s order), on every rank of the axis; the
     geometry equals the single-device module's bit for bit.
     """
-    center_idx = sharded_fps(xyz, npoint, mesh, axis_name, batch_axis)
-    new_xyz = sharded_gather(xyz, center_idx, mesh, axis_name, batch_axis)
-    center_feats = sharded_gather(features, center_idx, mesh, axis_name, batch_axis)
-    sample_idx, _ = sharded_knn(xyz, new_xyz, nsample, mesh, axis_name, batch_axis)
-    grouped_xyz = sharded_group(xyz, sample_idx, mesh, axis_name, batch_axis) - new_xyz[:, :, None, :]
-    grouped_feats = sharded_group(features, sample_idx, mesh, axis_name, batch_axis)
+    center_idx = sharded_fps(xyz, npoint, mesh, axis_name)
+    new_xyz = sharded_gather(xyz, center_idx, mesh, axis_name)
+    center_feats = sharded_gather(features, center_idx, mesh, axis_name)
+    sample_idx, _ = sharded_knn(xyz, new_xyz, nsample, mesh, axis_name)
+    grouped_xyz = sharded_group(xyz, sample_idx, mesh, axis_name) - new_xyz[:, :, None, :]
+    grouped_feats = sharded_group(features, sample_idx, mesh, axis_name)
     if nsample > 1:
         grouped_feats = grouped_feats - center_feats[:, :, None, :]
     if use_xyz:

@@ -45,31 +45,21 @@ def sharded_patchaugnet_train_forward(
     mesh: Mesh,
     *,
     axis_name: str = "points",
-    batch_axis: Optional[str] = None,
 ) -> torch.Tensor:
-    """Train-mode PatchAugNet descriptor forward with the point axis split
-    along ``axis_name``: ``x`` is this rank's ``(b, n / size, 3)`` shard
-    (``b`` its rows where ``batch_axis`` splits the batch). Returns the
-    ``(b, OUTPUT_DIM)`` descriptors, on every rank of the axis; the
-    model's running statistics update in place, the same on every rank."""
+    """Train-mode descriptor forward of a PatchAugNet (or a PPT-Net:
+    ``sharded_pptnet_train_forward``, normalised where its
+    ``use_normalize`` is set) with the point axis split along
+    ``axis_name``: ``x`` is this rank's ``(b, n / size, 3)`` shard, ``b``
+    its rows on a 2-D mesh. Returns the ``(b, OUTPUT_DIM)`` descriptors,
+    on every rank of the axis; the model's running statistics update in
+    place, the same on every rank."""
     model.train()
     with batch_stats_group(mesh.group(), mesh.size):
-        return _sharded_pyramid(model, x, mesh, axis_name, batch_axis)[0]
+        return _sharded_pyramid(model, x, mesh, axis_name)[0]
 
 
-def sharded_pptnet_train_forward(
-    model: nn.Module,
-    x: torch.Tensor,
-    mesh: Mesh,
-    *,
-    axis_name: str = "points",
-    batch_axis: Optional[str] = None,
-) -> torch.Tensor:
-    """The PPT-Net form of :func:`sharded_patchaugnet_train_forward`
-    (``models.PPTNet``, normalised where its ``use_normalize`` is set)."""
-    model.train()
-    with batch_stats_group(mesh.group(), mesh.size):
-        return _sharded_pyramid(model, x, mesh, axis_name, batch_axis)[0]
+# the same pyramid: PPT-Net's four levels and SPVLAD scales
+sharded_pptnet_train_forward = sharded_patchaugnet_train_forward
 
 
 def build_sharded_train_step(
@@ -111,13 +101,12 @@ def build_sharded_train_step(
     num_pos = cfg["TRAIN_POSITIVES_PER_QUERY"]
     num_neg = cfg["TRAIN_NEGATIVES_PER_QUERY"]
     pr_loss = L.get_loss_func(cfg.get("LOSS_FUNCTION", "quadruplet"))
-    forward = sharded_patchaugnet_train_forward if model_type == "patch_aug_net" else sharded_pptnet_train_forward
 
     def step(state, clouds):
         net = state.model
         clouds = torch.as_tensor(clouds, dtype=torch.float32, device=mesh.device)
         state.optimizer.zero_grad(set_to_none=True)
-        desc = forward(net, clouds, mesh, axis_name=axis_name, batch_axis=batch_axis)
+        desc = sharded_patchaugnet_train_forward(net, clouds, mesh, axis_name=axis_name)
         if batch_axis is not None:
             desc = gather_rows(desc, mesh, batch_axis)
         q, pos, neg, other = _split_tuple(desc, batch_size, num_pos, num_neg)

@@ -52,8 +52,10 @@ def prepare_patch_inputs(
     np_rng: np.random.RandomState,
 ) -> Tuple[PatchCorrespondences, torch.Tensor]:
     """Correspondence tables + related-cloud mask for one batch, on the
-    CPU (the step moves them). Reads the centres back from their device."""
-    total = batch.clouds.shape[0]
+    CPU (the step moves them). Reads the centres back from their device.
+    ``center_fn`` takes ``batch.clouds`` and returns the whole batch's
+    centres (a sharded one where the batch holds one rank's rows)."""
+    total = batch.total
     if not batch.nn_dict:
         return empty_patch_inputs(cfg, total)
     centers = center_fn(batch.clouds).cpu().numpy()       # (B*T, M)
@@ -92,11 +94,28 @@ def train_one_epoch(
     total_iterations: int = 0,
     max_batches: Optional[int] = None,
     save_dir: Optional[str] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, Any]:
     """One epoch of ``train_step`` over ``train_ds``; returns the mean of
     each metric, ``batches``, ``patch_batches`` (batches with overlap
-    tables), ``seconds``, ``total_iterations`` and ``state``."""
+    tables), ``seconds``, ``total_iterations`` and ``state``.
+
+    ``shard``: (this rank, the ranks) of a data-parallel run. Every rank
+    draws the same batches and loads only its rows of each
+    (``parallel.host_batch_slice``), as it does of each batch of the
+    mining refresh; ``train_step``, ``center_fn`` and ``forward_fn`` then
+    take those rows, and ``center_fn`` and ``forward_fn`` return the whole
+    batch's outputs."""
     batch_size = cfg["TRAIN_BATCH_SIZE"]
+    rows = refresh_rows = None
+    refresh_batch = 36
+    if shard is not None:
+        from ..parallel.host_data import host_batch_slice
+
+        tuple_size = 1 + cfg["TRAIN_POSITIVES_PER_QUERY"] + cfg["TRAIN_NEGATIVES_PER_QUERY"] + 1
+        rows = host_batch_slice(batch_size * tuple_size, *shard)
+        refresh_batch = -(-refresh_batch // shard[1]) * shard[1]
+        refresh_rows = host_batch_slice(refresh_batch, *shard)
     use_hard_neg = True
     if epoch <= HARD_NEG_EPOCH:
         train_ds.clear_global_descs()
@@ -128,12 +147,12 @@ def train_one_epoch(
                 it,
             )
 
-    for batch in train_ds.iter_epoch(batch_size, shuffle=True):
+    for batch in train_ds.iter_epoch(batch_size, shuffle=True, rows=rows):
         if center_fn is not None and batch.nn_dict:
             corr, mask = prepare_patch_inputs(batch, center_fn, cfg, epoch, rng, np_rng)
             patch_batches += 1
         else:
-            corr, mask = empty_patch_inputs(cfg, batch.clouds.shape[0])
+            corr, mask = empty_patch_inputs(cfg, batch.total)
         state, metrics = train_step(state, batch.clouds, corr, mask)
         total_iterations += batch_size
         count += 1
@@ -147,7 +166,7 @@ def train_one_epoch(
             and forward_fn is not None
             and count % refresh_every == min(29, refresh_every - 1)
         ):
-            train_ds.update_global_descs(forward_fn, batch_size=36)
+            train_ds.update_global_descs(forward_fn, batch_size=refresh_batch, rows=refresh_rows)
             train_ds.mine_hard_negatives(np_rng)
             if logger:
                 logger.info("Updated cached descriptors for hard-negative mining")

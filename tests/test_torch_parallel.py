@@ -13,18 +13,19 @@ Indices from point-axis sharding equal the JAX ones exactly. Tolerances:
   within rtol 1e-5, the updated parameters and statistics within atol
   1e-5 (the BatchNorm statistics are averaged over the ranks, so their
   sums run in another order);
-- the data-parallel gradients against the single-process ones: within
-  GRAD_TOL of the largest gradient magnitude (measured below 1e-6), their
-  norm within 1% of the single-process norm: not twice it;
+- the data-parallel gradients against the single-process ones: leaf by
+  leaf within GRAD_RTOL in relative L2 (``_leaf_errors``), their norm
+  within 1% of the single-process norm: not twice it;
 - the sharded eval forwards and the point-sharded features: the bits of
   the single-process forward where the computation per row is the same
   (global and local descriptors of each record, every FP feature), the
   descriptors of the point-sharded forwards within 1e-6 (the finest VLAD
   scale sums in another order), and within DESC_TOL of the JAX model;
-- the point-sharded train step against the port's single-process step
-  (the JAX single-device step's port, held to it in
-  ``tests/test_torch_train.py``): the loss within rtol 1e-5, the
-  parameters within atol 1e-5.
+- the point-sharded train steps of PatchAugNet and PPT-Net against the
+  port's single-process step (the JAX single-device step's port, held to
+  it in ``tests/test_torch_train.py``): the loss within rtol 1e-5, the
+  parameters within atol 1e-5, and PPT-Net's gradients leaf by leaf
+  within GRAD_RTOL.
 """
 import functools
 import os
@@ -42,7 +43,7 @@ from patchaugnet_tpu.losses.patch_contrast import PatchCorrespondences as JaxCor
 from patchaugnet_tpu.models import get_model as jax_get_model
 from patchaugnet_tpu.parallel import host_data as jhost_data
 
-from patchaugnet_tpu_torch import configs, models, ops, parallel, serving, train
+from patchaugnet_tpu_torch import configs, data, models, ops, parallel, serving, train
 from patchaugnet_tpu_torch.data import retrieval
 from patchaugnet_tpu_torch.compat import load_jax_variables, to_jax_variables
 from patchaugnet_tpu_torch.losses import PatchCorrespondences
@@ -62,6 +63,8 @@ PLAIN_CFG = dict(CFG, use_patch_recon=False, use_patch_feature_contrast=False)
 PPT_CFG = dict(configs.PPTNET_ORIGIN, NUM_POINTS=128, SAMPLING=[32, 16, 8, 4], KNN=[8, 8, 4, 4],
                FEATURE_SIZE=[32] * 4, OUTPUT_DIM=[32] * 4, CLUSTER_SIZE=[1, 2, 4, 8], MAX_SAMPLES=[8, 16, 32, 128],
                GROUP=8)
+PPT_STEP_CFG = dict(PPT_CFG, model_type="pptnet_l2_norm", TRAIN_BATCH_SIZE=2, TRAIN_POSITIVES_PER_QUERY=1,
+                    TRAIN_NEGATIVES_PER_QUERY=2, BASE_LEARNING_RATE=1e-4, OPTIMIZER="momentum")
 PNV_CFG = dict(configs.POINTNET_VLAD, NUM_POINTS=64, FEATURE_OUTPUT_DIM=32)
 STEP_RTOL = 1e-5
 PARAM_ATOL = 1e-5
@@ -142,7 +145,7 @@ def inputs():
         xyz=rng.rand(2, 256, 3).astype(np.float32), q=rng.rand(2, 64, 3).astype(np.float32),
         f=rng.randn(2, 256, 8).astype(np.float32), gidx=rng.randint(0, 256, (2, 32, 10)).astype(np.int32),
         queries=rng.randn(20, 16).astype(np.float32), db=rng.randn(128, 16).astype(np.float32),
-        ppt_cfg=PPT_CFG, ppt_clouds=rng.rand(2, 128, 3).astype(np.float32),
+        ppt_cfg=PPT_CFG, ppt_step_cfg=PPT_STEP_CFG, ppt_clouds=rng.rand(2, 128, 3).astype(np.float32),
         ppt_variables=_random_variables(to_jax_variables(models.get_model("pptnet_l2_norm", PPT_CFG)), rng),
         pnv_cfg=PNV_CFG, pnv_clouds=rng.rand(2, 64, 3).astype(np.float32),
         pnv_variables=_random_variables(to_jax_variables(models.get_model("pointnet_vlad", PNV_CFG)), rng),
@@ -264,10 +267,8 @@ def test_parallel_gradients_are_the_single_process_ones(two, inputs):
     gradient's norm within 1% of the single-process one."""
     single, _ = _single_step(CFG_A2A, inputs)
     want = {k: p.grad.double() for k, p in single.model.named_parameters()}
-    floor = 1e-4 * max(float(g.norm()) for g in want.values())
     got = {k: g.double() for k, g in two[0]["step_a2a"]["grads"].items()}
-    for k, g in want.items():
-        err = float((got[k] - g).norm()) / max(float(g.norm()), floor)
+    for k, err in _leaf_errors(got, want).items():
         assert err < GRAD_RTOL, f"{k}: relative L2 {err:.3e}"
     norm = lambda grads: float(torch.sqrt(sum((g ** 2).sum() for g in grads.values())))
     assert abs(norm(got) / norm(want) - 1.0) < 0.01
@@ -318,6 +319,48 @@ def test_host_batch_slice(ranks):
                 jhost_data.host_record_indices(list(range(64)), index, count)
     with pytest.raises(ValueError, match="split evenly"):
         parallel.host_batch_slice(10, 0, 4)
+
+
+def _entries(nn_dict):
+    return {k: [(e.idx1, e.near_indices2, e.far_indices2, e.bad_far_indices2) for e in v] for k, v in nn_dict.items()}
+
+
+def test_a_rank_loads_only_its_rows():
+    """A data-parallel rank's batch (``rows``): the whole batch's draws,
+    tuples and overlap tables, and only its rows of the clouds, those of
+    the whole batch; a rank's rows of each batch of a descriptor sweep
+    (the mining refresh): the padded batch's rows, the sharded forward's
+    whole-batch outputs kept. Augmentation, and a store without the whole
+    clouds, are refused."""
+    kw = dict(num_pos=1, num_neg=2, num_points=64, device="cpu", load_overlap_indices=True)
+    whole = data.PlaceRecognitionDataset("synthetic", True, **kw)
+    batch = next(whole.iter_epoch(2))
+    for rows in (slice(0, 5), slice(5, 10)):
+        part = next(data.PlaceRecognitionDataset("synthetic", True, **kw).iter_epoch(2, rows=rows))
+        assert part.total == batch.total == 10 and part.rows == rows and batch.rows is None
+        np.testing.assert_array_equal(part.clouds, batch.clouds[rows])
+        assert part.query_indices == batch.query_indices and _entries(part.nn_dict) == _entries(batch.nn_dict)
+    scene, size = whole.scene, 20
+    n = len(scene.records)
+    seen, outs = [], []
+
+    def forward(clouds):
+        seen.append(clouds)
+        outs.append(np.random.RandomState(len(outs)).rand(size, 4).astype(np.float32))
+        return outs[-1]
+
+    scene.make_descs(forward, size, rows=slice(10, 20))
+    starts = range(0, n, size)
+    assert len(seen) == len(starts) and n % size
+    for s, clouds in zip(starts, seen):
+        idx = list(range(s, min(s + size, n)))
+        padded = idx + idx[-1:] * (size - len(idx))
+        np.testing.assert_array_equal(clouds, scene.get_clouds(padded[10:20])[0])
+    np.testing.assert_array_equal(scene.global_descs, np.concatenate(outs)[:n])
+    with pytest.raises(ValueError, match="whole"):
+        scene.make_descs(forward, size, save_model_type="x", rows=slice(0, 10))
+    with pytest.raises(ValueError, match="augmentation"):
+        data.PlaceRecognitionDataset("synthetic", True, augmentation=["jitter"], **kw).sample_batch([0, 1], slice(0, 5))
 
 
 def test_sharded_knn_fps_group_match_jax(two, inputs):
@@ -412,6 +455,37 @@ def test_sharded_train_step(two, inputs):
     for k, v in state.model.state_dict().items():
         np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(), atol=PARAM_ATOL, err_msg=k)
     assert all(rank["sharded_step"]["ranks_agree"] for rank in two)
+
+
+def _leaf_errors(got, want):
+    """Each parameter's gradient error in relative L2, a leaf's norm
+    floored at 1e-4 of the largest (the biases before a BatchNorm have
+    rounding-noise gradients): a dropped or mis-scaled leaf reads 1 or
+    more whatever its size."""
+    floor = 1e-4 * max(float(g.norm()) for g in want.values())
+    return {k: float((got[k].double() - g.double()).norm()) / max(float(g.norm()), floor) for k, g in want.items()}
+
+
+def test_sharded_pptnet_train_step(two, inputs):
+    """build_sharded_train_step of PPT-Net over two point shards against
+    the port's single-process step: the loss within rtol 1e-5, every
+    parameter's gradient leaf by leaf within GRAD_RTOL in relative L2
+    (measured 2.4e-4 at most, on the GroupSA biases, whose gradients are
+    rounding noise below the floor), the parameters within atol 1e-5;
+    every rank the same."""
+    state = train.create_train_state(_port_model(PPT_STEP_CFG, inputs["ppt_variables"]), PPT_STEP_CFG,
+                                     steps_per_epoch=1, device="cpu")
+    corr, mask = train.step.empty_patch_inputs(PPT_STEP_CFG, TOTAL)
+    state, metrics = train.build_train_step(state.model, PPT_STEP_CFG)(state, inputs["clouds"], corr, mask)
+    got = two[0]["ppt_sharded_step"]
+    assert got["metrics"]["total"] > 1e-3
+    np.testing.assert_allclose(got["metrics"]["total"], float(metrics["total"]), rtol=STEP_RTOL)
+    errors = _leaf_errors(got["grads"], {k: p.grad for k, p in state.model.named_parameters()})
+    worst = max(errors, key=errors.get)
+    assert errors[worst] < GRAD_RTOL, f"{worst}: relative L2 {errors[worst]:.3e}"
+    for k, v in state.model.state_dict().items():
+        np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(), atol=PARAM_ATOL, err_msg=k)
+    assert all(rank["ppt_sharded_step"]["ranks_agree"] for rank in two)
 
 
 def test_sharded_train_step_refuses_patch_losses_and_applies_the_gate(two):

@@ -69,12 +69,11 @@ def _sa_cases(inp, points, grid):
     with torch.inference_mode():
         out["sa_points4"] = parallel.sharded_sa_level(sa.mlp, _shard(xyz, points, "points"),
                                                       _shard(feats, points, "points"), npoint=inp["npoint"],
-                                                      nsample=inp["nsample"], mesh=points, batch_axis=None)
+                                                      nsample=inp["nsample"], mesh=points)
         rows = parallel.batch_sharded(grid, xyz.shape[0], "data")
         out["sa_grid"] = parallel.sharded_sa_level(sa.mlp, _shard(xyz[rows], grid, "points"),
                                                    _shard(feats[rows], grid, "points"), npoint=inp["npoint"],
-                                                   nsample=inp["nsample"], mesh=grid, axis_name="points",
-                                                   batch_axis="data")
+                                                   nsample=inp["nsample"], mesh=grid, axis_name="points")
     out["grid_rows"] = rows
     return out
 
@@ -136,6 +135,11 @@ def _pair_cases(inp, mesh, solo):
     step = parallel.build_sharded_train_step(cfg, mesh, axis_name="data")
     state, metrics = step(state, _shard(torch.from_numpy(inp["clouds"]), mesh, "data"))
     out["sharded_step"] = _step_result(state, metrics, mesh)
+    ppt_cfg = inp["ppt_step_cfg"]
+    state = _state(ppt_cfg, inp["ppt_variables"])
+    state, metrics = parallel.build_sharded_train_step(ppt_cfg, mesh, axis_name="data")(
+        state, _shard(torch.from_numpy(inp["clouds"]), mesh, "data"))
+    out["ppt_sharded_step"] = _step_result(state, metrics, mesh)
     refusals = []
     for bad in (dict(cfg, use_patch_recon=True), dict(cfg, weight_place_recognition=0.5)):
         try:

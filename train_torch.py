@@ -23,9 +23,12 @@ parameters, optimizer state and BatchNorm statistics f32); ``--remat``
 recomputes the forward in the backward (``REMAT``). ``--devices N`` trains
 data-parallel over N ranks (``parallel.build_parallel_train_step``), one
 process each: every rank draws the same tuple batch from the seed and
-takes its rows of it, ``TRAIN_BATCH_SIZE`` is raised until the flattened
-batch splits evenly, as ``train.py`` does, and rank 0 alone logs, writes
-the events and the checkpoints and runs the per-epoch eval on its card.
+loads only its rows of it, runs K1 for the patch centres on them (the
+centres gathered, the tables built alike on every rank) and its rows of
+each batch of the mining refresh; ``TRAIN_BATCH_SIZE`` is raised until
+the flattened batch splits evenly, as ``train.py`` does, and rank 0 alone
+logs, writes the events and the checkpoints and runs the per-epoch eval
+on its card.
 The ranks use NCCL on cards of their own, gloo with ``--platform cpu``,
 and gloo on one card with ``--share-device``. TruncatedSmoothAP
 (MinkLoc3Dv2) trains on one device: ``--devices`` above 1 is refused
@@ -139,20 +142,26 @@ def _rank_logger(rank: int):
     return logger
 
 
-def _rank_step(model, cfg, mesh):
-    """The data-parallel step behind the loop's ``step(state, clouds, corr,
-    mask)``: this rank's rows of the batch to its device
-    (``host_batch_slice``, ``make_global_batch``), the whole batch's
-    tables."""
+def _rank_fns(model, cfg, mesh, center_fn):
+    """What a rank hands the loop, each taking this rank's rows of a batch
+    (the loop loads no others): the data-parallel step (``step(state,
+    clouds, corr, mask)``, the whole batch's tables and mask), the centres
+    of the whole batch (K1 on this rank's rows, gathered), and the mining
+    refresh's forward (the whole batch's descriptors)."""
     from patchaugnet_tpu_torch import parallel
 
     pstep = parallel.build_parallel_train_step(model, cfg, mesh)
 
     def step(state, clouds, corr, cloud_mask):
-        rows = parallel.host_batch_slice(clouds.shape[0], mesh.rank, mesh.size)
-        return pstep(state, parallel.make_global_batch(mesh, clouds[rows]), corr, cloud_mask[rows])
+        rows = parallel.host_batch_slice(cloud_mask.shape[0], mesh.rank, mesh.size)
+        return pstep(state, parallel.make_global_batch(mesh, clouds), corr, cloud_mask[rows])
 
-    return step
+    centers = None
+    if center_fn is not None:
+        def centers(clouds):
+            return parallel.gather_rows(center_fn(clouds), mesh)
+
+    return step, centers, parallel.build_parallel_forward(model, mesh)
 
 
 def _train_rank(args, cfg):
@@ -279,11 +288,13 @@ def _train(args, cfg, device, mesh=None):
         state, starting_epoch = train.restore_checkpoint(path, state)
         logger.info(f"Resumed from {path} at epoch {starting_epoch}")
 
-    step = None if use_smoothap else train.build_train_step(state.model, cfg)
-    if mesh is not None:
-        step = _rank_step(state.model, cfg, mesh)
     forward = train.build_forward_fn(state.model, device)
     center_fn = train.build_center_fn(cfg["SAMPLING"][0], device) if use_patches else None
+    if mesh is not None:
+        step, center_fn, refresh_fn = _rank_fns(state.model, cfg, mesh, center_fn)
+    else:
+        step = None if use_smoothap else train.build_train_step(state.model, cfg)
+        refresh_fn = forward
     run = {"cfg": cfg, "state": state, "train_ds": train_ds, "test_ds": test_ds, "forward": forward,
            "summaries": []}
 
@@ -319,9 +330,10 @@ def _train(args, cfg, device, mesh=None):
         logger.info(f"**** EPOCH {epoch:03d} ****")
         summary = train.train_one_epoch(
             state, step, train_ds, cfg, epoch, rng, np_rng,
-            forward_fn=forward, center_fn=center_fn, writer=writer,
+            forward_fn=refresh_fn, center_fn=center_fn, writer=writer,
             logger=logger, total_iterations=total_iterations,
             max_batches=args.max_batches, save_dir=cfg["save_path"] if lead else None,
+            shard=None if mesh is None else (mesh.rank, mesh.size),
         )
         state = summary.pop("state")
         total_iterations = summary["total_iterations"]
