@@ -176,7 +176,32 @@ Phases, each fatal on failure:
    ``--devices 2 --share-device`` (the ranks' models equal; the
    descriptors within 1e-5 of ``--devices 1``'s, and every query whose
    first neighbour differs a tie within what that difference can swap);
-12. report: one ``{"kernels": [...]}`` line, the card's name and power
+12. extras (the device-side remainder): each piece on the card against
+   the same port code on the CPU from the same inputs and weights, and,
+   where K2 is on its path, against the plain kernels on the card; each
+   with its ms per call and its K2 launches. The point ops at the
+   flagship's SA0 shapes (B=32, 4096 points, the 1024 K1 centres,
+   nsample 20, one cloud point in nine a duplicate) with a radius that
+   leaves some queries short and some over-full (the shares printed):
+   ``ball_query`` (and the peak memory of its matrices),
+   ``knn_exclude_self`` (K2 once), ``self_sqdist``, every form of
+   ``query_and_group_edge`` (kNN, K2 once; radius; given indices;
+   xyz-only, K2 once; without xyz; the seeded shuffle as a permutation of
+   the kNN's), ``query_and_group`` (kNN, K2 once; radius), ``group_all``,
+   the label statistics with 13 classes, ``featuredistribute`` and
+   ``featuregather`` with its backward: indices and counts equal, floats
+   equal (the backward within 1e-5 of its largest value). The losses forward and backward
+   within the CPU suite's tolerances: the miners at the flagship step's 72
+   descriptors of 256, the quadruplet form, ``ot_loss`` and ``pps_loss``
+   over 32 pairs of 128 x 128 sets of 256-d features with 8 candidates
+   per row, the multi-similarity and focal losses. ``nn/extras.py`` in
+   eval mode at d_model 256 over 128 positions, B=32, within 5e-5:
+   ``SingleFeatProcessor`` and ``PairwiseFeatProcessor`` (distance + angle
+   encoders, angle_k 3: K2 once per ``AngleEncoder`` call; NetVLAD;
+   layers self, cross, self, cross), ``TransformerEncoderLayer`` (nhead
+   4, feed-forward 2048, with and without ``linear_attention_k``), and
+   ``CBAM`` and ``SEAttention`` over (32, 1024, 256);
+13. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2735,6 +2760,295 @@ def phase_parallel(torch, mods, records, dev):
     return paths
 
 
+# phase 12: the device-side remainder (ops, losses, nn/extras.py) at full width
+EXTRAS_NSAMPLE = 20                           # SA0's kNN and ball size (configs/patch_aug_net.yaml)
+EXTRAS_RADIUS = 0.1                           # about 17 of 4096 uniform points in the ball: some short, some over-full
+EXTRAS_FEATURES = 64                          # feature width of the grouped point features
+LABEL_CLASSES = 13
+MINED_DESCRIPTORS, MINED_TUPLE = 72, 18       # the flagship step's descriptors and its tuples of 18
+DESC_DIM = 256
+POSE_POINTS, POSE_NEGATIVES = 128, 8          # ot_loss / pps_loss point sets (the SA1 centres) and candidates per row
+EXTRAS_L, EXTRAS_D = 128, 256                 # the extras' positions (the SA1 centres) and d_model
+CBAM_L = 1024                                 # CBAM and SE over the SA0 centres
+EXTRAS_REPS = 10                              # timed calls per piece
+LOSS_RTOL, LOSS_GRAD_RTOL, LOSS_GRAD_ATOL = 1e-5, 1e-5, 1e-6   # the CPU suite's (tests/test_torch_losses_extra.py)
+EXTRAS_TOL = 5e-5                             # nn extras, card against CPU, absolute (measured 8.8e-6 at d_model 256)
+FLOAT_GRAD_RTOL = 1e-5                        # featuregather's scatter-add backward against its largest value
+                                              # (the card's atomics add in another order)
+
+
+def to_cpu(tree):
+    """A tensor, or every tensor of a tuple or list of them, on the CPU."""
+    if isinstance(tree, (tuple, list)):
+        items = [to_cpu(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    return tree.detach().cpu() if hasattr(tree, "detach") else tree
+
+
+def max_err(torch, a, b):
+    """Largest absolute difference over matching tensors of two results (0
+    for equal integer tensors; inf where an integer tensor differs)."""
+    a, b = to_cpu(a), to_cpu(b)
+    if isinstance(a, (tuple, list)):
+        return max(max_err(torch, x, y) for x, y in zip(a, b, strict=True))
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {tuple(a.shape)} against {tuple(b.shape)}")
+    if not a.is_floating_point():
+        return 0.0 if torch.equal(a, b) else float("inf")
+    return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+
+
+class ExtrasRun:
+    """Phase 12's bookkeeping: each piece run on the card (counted), timed,
+    and held against the same port code on the CPU from the same inputs
+    (and, where K2 is on its path, against the plain kernels on the card)."""
+
+    def __init__(self, torch, mods, records):
+        self.torch, self.mods, self.records = torch, mods, records
+        self.paths, self.lines = [], []
+
+    def piece(self, name, fn, args, tol=0.0, knn=0):
+        """``fn(*args)`` on the card, K2 launched ``knn`` times and nothing
+        else; equal (``tol`` 0) or within ``tol`` of ``fn`` on the CPU on the
+        same inputs and, where K2 is on the path, of the card run under
+        ``plain_kernels``. Returns the card's result."""
+        torch = self.torch
+        with torch.no_grad():
+            got, counts, _ = counted(torch, self.mods, self.records, lambda: fn(*args))
+        check_launches(counts, {"knn": knn}, f"phase 12 {name}")
+        self.paths.append(counts)
+        with torch.no_grad():
+            cpu = fn(*to_cpu(args))
+        err = max_err(torch, got, cpu)
+        if err > tol:
+            raise AssertionError(f"phase 12 {name}: card against CPU max abs err {err} (allowed {tol})")
+        text = f"card against CPU {'equal' if err == 0 else f'max abs err {err:.3g}'}"
+        if knn:
+            with torch.no_grad(), plain_kernels(self.mods):
+                before = read_counts(self.mods, self.records)
+                ref = fn(*args)
+                if read_counts(self.mods, self.records) != before:
+                    raise AssertionError(f"phase 12 {name}: the plain run launched a kernel")
+            perr = max_err(torch, got, ref)
+            if perr > tol:
+                raise AssertionError(f"phase 12 {name}: kernels against plain kernels max abs err {perr}")
+            text += f", against the plain kernels {'equal' if perr == 0 else f'{perr:.3g}'}"
+        with torch.no_grad():
+            ms = time_ms(torch, lambda: fn(*args), EXTRAS_REPS)
+        self.lines.append(f"{name} {ms:.4f} ms, K2 {counts['knn']}, {text}")
+        return got
+
+    def grad_piece(self, name, fn, floats, others, stats_keys=()):
+        """A loss ``fn(*floats, *others)`` (or ``(loss, stats)``) forward
+        and backward on the card against the CPU: the value and float
+        statistics within ``LOSS_RTOL``, integer statistics equal, the
+        gradients of every tensor in ``floats`` within ``LOSS_GRAD_RTOL``
+        relative plus ``LOSS_GRAD_ATOL``; no kernel launched."""
+        torch = self.torch
+
+        def run(fl, ot):
+            leaves = [f.detach().clone().requires_grad_(True) for f in fl]
+            out = fn(*leaves, *ot)
+            loss, stats = out if isinstance(out, tuple) else (out, {})
+            loss.backward()
+            return loss.detach(), {k: v.detach() for k, v in stats.items()}, [x.grad for x in leaves]
+
+        (loss, stats, grads), counts, _ = counted(torch, self.mods, self.records, lambda: run(floats, others))
+        check_launches(counts, {}, f"phase 12 {name}")
+        self.paths.append(counts)
+        c_loss, c_stats, c_grads = run(to_cpu(floats), to_cpu(others))
+        rel = abs(loss.item() - c_loss.item()) / max(abs(c_loss.item()), 1e-30)
+        bad = [k for k, v in stats.items()
+               if (v.is_floating_point() and abs(v.item() - c_stats[k].item()) > LOSS_RTOL * abs(c_stats[k].item()))
+               or (not v.is_floating_point() and v.item() != c_stats[k].item())]
+        # each gradient element's error beyond its relative allowance
+        excess = max(((g.cpu().double() - c.double()).abs() - LOSS_GRAD_RTOL * c.double().abs()).max().item()
+                     for g, c in zip(grads, c_grads))
+        if rel > LOSS_RTOL or bad or excess > LOSS_GRAD_ATOL or not torch.isfinite(loss):
+            raise AssertionError(f"phase 12 {name}: loss {loss.item()} against CPU {c_loss.item()} (rel {rel}), "
+                                 f"statistics differing {bad}, gradient error beyond {LOSS_GRAD_RTOL} relative "
+                                 f"{excess} (allowed {LOSS_GRAD_ATOL})")
+        ms = time_ms(torch, lambda: run(floats, others), EXTRAS_REPS)
+        gmax = max((g.cpu() - c).abs().max().item() for g, c in zip(grads, c_grads))
+        self.lines.append(f"{name} {ms:.4f} ms forward and backward, loss {loss.item():.6g} (rel err {rel:.3g}), "
+                          f"gradients max abs err {gmax:.3g}")
+
+
+def extras_point_ops(torch, ops, run, dev):
+    """The remaining point ops at the flagship's SA0 shapes."""
+    gen = torch.Generator(device=dev).manual_seed(70)
+    xyz = torch.rand(B, N_POINTS, 3, generator=gen, device=dev)
+    xyz[:, 9::9] = xyz[:, :1]                              # duplicates: ties in the kNN and the ball
+    centers = ops.farthest_point_sample(xyz, PATCH_LEVELS[0])   # K1, outside the counted runs
+    new_xyz = ops.gather(xyz, centers)
+    feats = torch.randn(B, N_POINTS, EXTRAS_FEATURES, generator=gen, device=dev)
+    cfeat = ops.gather(feats, centers)
+    k, r = EXTRAS_NSAMPLE, EXTRAS_RADIUS
+
+    fill = (ops.pairwise_sqdist(new_xyz, xyz) < r * r).sum(-1)
+    shares = {"empty": (fill == 0).float().mean().item(), "short": ((fill > 0) & (fill < k)).float().mean().item(),
+              "full": (fill == k).float().mean().item(), "over-full": (fill > k).float().mean().item()}
+    if not (shares["short"] > 0 and shares["over-full"] > 0):
+        raise AssertionError(f"phase 12: radius {r} leaves no short or no over-full query: {shares}")
+    del fill
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.ball_query(r, k, xyz, new_xyz)
+    torch.cuda.synchronize()
+    ball_mib = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+
+    idx = run.piece("ball_query", lambda a, b: ops.ball_query(r, k, a, b), (xyz, new_xyz))
+    run.piece("knn_exclude_self", lambda a, b: ops.knn_exclude_self(a, b, k), (xyz, new_xyz), knn=1)
+    run.piece("self_sqdist", ops.self_sqdist, (new_xyz,))
+    qge = ops.query_and_group_edge
+    forms = {
+        "query_and_group_edge kNN (dilation 2)": (lambda *a: qge(*a, nsample=k, knn_dilation=2), 1),
+        "query_and_group_edge radius": (lambda *a: qge(*a, nsample=k, radius=r), 0),
+        "query_and_group_edge idx": (lambda a, b, f, c, i: qge(a, b, f, c, nsample=k, idx=i), 0),
+        "query_and_group_edge xyz only": (lambda a, b, f, c: qge(a, b, None, None, nsample=k), 1),
+        "query_and_group_edge no xyz, radius": (lambda *a: qge(*a, nsample=k, radius=r, use_xyz=False), 0),
+    }
+    for name, (fn, knn) in forms.items():
+        run.piece(name, fn, (xyz, new_xyz, feats, cfeat) + ((idx,) if name.endswith("idx") else ()), knn=knn)
+    # the shuffle draws from a generator on each device: held as the set of
+    # neighbours per row and as a seeded draw repeated
+    shuffled = [qge(xyz, new_xyz, feats, cfeat, nsample=k, knn_dilation=2,
+                    generator=torch.Generator(device=dev).manual_seed(s)).sample_idx for s in (1, 1)]
+    plain_idx = qge(xyz, new_xyz, feats, cfeat, nsample=k, knn_dilation=2).sample_idx
+    if not (torch.equal(shuffled[0], shuffled[1])
+            and torch.equal(shuffled[0].sort(-1).values, plain_idx.sort(-1).values)):
+        raise AssertionError("phase 12: the shuffled kNN grouping is not a seeded permutation of the kNN's")
+    run.piece("query_and_group kNN", lambda a, b, f: ops.query_and_group(a, b, f, nsample=k), (xyz, new_xyz, feats),
+              knn=1)
+    run.piece("query_and_group radius", lambda a, b, f: ops.query_and_group(a, b, f, nsample=k, radius=r),
+              (xyz, new_xyz, feats))
+    run.piece("group_all", ops.group_all, (xyz, feats))
+
+    labels = torch.randint(0, LABEL_CLASSES, (B, N_POINTS), generator=gen, device=dev)
+    label_stat = torch.nn.functional.one_hot(labels, LABEL_CLASSES).to(torch.int32)
+    run.piece("labelstat_ballrange", lambda a, b, s: ops.labelstat_ballrange(r, a, b, s), (xyz, new_xyz, label_stat))
+    run.piece("labelstat_and_ballquery", lambda a, b, s: ops.labelstat_and_ballquery(r, k, a, b, s),
+              (xyz, new_xyz, label_stat))
+    run.piece("labelstat_idx", ops.labelstat_idx, (label_stat, idx))
+    dist_idx = run.piece("featuredistribute", ops.featuredistribute, (new_xyz, xyz))
+    run.piece("featuregather", ops.featuregather, (cfeat, dist_idx))
+    # featuregather's backward: the gather's scatter-add (atomics on the card)
+    weight = torch.randn(B, N_POINTS, EXTRAS_FEATURES, generator=gen, device=dev)
+    grads = []
+    for dv in (dev, torch.device("cpu")):
+        leaf = cfeat.to(dv).clone().requires_grad_(True)
+        (ops.featuregather(leaf, dist_idx.to(dv)) * weight.to(dv)).sum().backward()
+        grads.append(leaf.grad.cpu())
+    gerr = (grads[0] - grads[1]).abs().max().item() / grads[1].abs().max().item()
+    if gerr > FLOAT_GRAD_RTOL:
+        raise AssertionError(f"phase 12 featuregather backward: card against CPU max abs err {gerr} of the largest")
+    measured(f"phase 12 (ops): B={B}, {N_POINTS} points, {PATCH_LEVELS[0]} centres, nsample {k}, radius {r}",
+             f"ball fill shares {', '.join(f'{key} {v:.4f}' for key, v in shares.items())}; ball_query's peak "
+             f"{ball_mib:.1f} MiB above its inputs (the (b, m, n) distances and int32 score, 512 MiB each); "
+             f"featuregather backward max abs err {gerr:.3g} of its largest value; " + "; ".join(run.lines))
+    run.lines.clear()
+
+
+def extras_losses(torch, losses, run, dev):
+    """The miners at the flagship step's 72 descriptors, the quadruplet
+    form, the pose-estimation losses over 128 x 128 point sets, the
+    multi-similarity and focal losses."""
+    gen = torch.Generator(device=dev).manual_seed(71)
+    n = MINED_DESCRIPTORS
+    emb = torch.nn.functional.normalize(torch.randn(n, DESC_DIM, generator=gen, device=dev), dim=-1)
+    tup = torch.arange(n, device=dev) // MINED_TUPLE
+    slot = torch.arange(n, device=dev) % MINED_TUPLE
+    pos = (tup[:, None] == tup[None, :]) & (slot[None, :] < 3) & ~torch.eye(n, dtype=torch.bool, device=dev)
+    neg = tup[:, None] != tup[None, :]
+    run.grad_piece("batch_hard_triplet_loss", losses.batch_hard_triplet_loss, [emb], [pos, neg])
+    run.grad_piece("batch_hard_contrastive_loss", losses.batch_hard_contrastive_loss, [emb], [pos, neg])
+    q, p, ng, other = (emb.reshape(4, MINED_TUPLE, DESC_DIM)[:, a:b] for a, b in ((0, 1), (1, 3), (3, 17), (17, 18)))
+    run.grad_piece("contrastive_quadruplet_loss",
+                   lambda *a: losses.contrastive_quadruplet_loss(*a, 0.5, 0.2), [q, p, ng, other], [])
+
+    m = POSE_POINTS
+    scores = torch.randn(B, m + 1, m + 1, generator=gen, device=dev)
+    pair_idx = torch.stack([torch.randperm(m, generator=gen, device=dev).expand(B, m),
+                            torch.randint(0, m, (B, m), generator=gen, device=dev)], -1).int()
+    pair_valid = torch.rand(B, m, generator=gen, device=dev) < 0.5
+    unpair = torch.randint(0, m, (2, B, m), generator=gen, device=dev).int()
+    u_valid = torch.rand(2, B, m, generator=gen, device=dev) < 0.5
+    run.grad_piece("ot_loss", losses.ot_loss, [scores],
+                   [pair_idx, pair_valid, unpair[0], u_valid[0], unpair[1], u_valid[1]])
+    src = torch.randn(B, m, DESC_DIM, generator=gen, device=dev)
+    tgt = torch.randn(B, m, DESC_DIM, generator=gen, device=dev)
+    neg_idxs = torch.randint(0, m, (B, m, 2 + POSE_NEGATIVES), generator=gen, device=dev).int()
+    neg_valid = torch.rand(B, m, generator=gen, device=dev) < 0.8
+    run.grad_piece("pps_loss", losses.pps_loss, [src, tgt], [neg_idxs, neg_valid])
+    apn = emb.reshape(3, 4, 6, DESC_DIM)
+    run.grad_piece("multi_similarity_loss", losses.multi_similarity_loss, [apn[0], apn[1], apn[2]], [])
+    logits = torch.randn(n, LABEL_CLASSES, generator=gen, device=dev)
+    target = torch.randint(0, LABEL_CLASSES, (n,), generator=gen, device=dev)
+    run.grad_piece("focal_loss", losses.focal_loss, [logits], [target])
+    run.grad_piece("binary_focal_loss", lambda x, t: losses.binary_focal_loss(x, t, with_logit=True), [logits],
+                   [torch.rand(n, LABEL_CLASSES, generator=gen, device=dev) < 0.3])
+    measured(f"phase 12 (losses): {n} descriptors of {DESC_DIM} (tuples of {MINED_TUPLE}); pose sets {B} x {m} x "
+             f"{m}, {POSE_NEGATIVES} candidates per row", "; ".join(run.lines))
+    run.lines.clear()
+
+
+def extras_blocks(torch, nn, run, dev):
+    """``nn/extras.py`` at d_model 256 over 128 positions, B=32, eval mode,
+    on seeded weights copied to the CPU."""
+    gen = torch.Generator(device=dev).manual_seed(72)
+    cfg = {"embed_dim": EXTRAS_D, "local_dim": EXTRAS_D, "global_dim": EXTRAS_D, "num_local": EXTRAS_L,
+           "cluster_size": 64, "use_geo_encoder": True, "geo_encode_type": "dist_and_angle", "angle_k": 3,
+           "add_or_cat": "cat", "use_vlad": True, "layer_names": ["self", "cross", "self", "cross"],
+           "use_pool": True, "pool": "gem"}
+
+    def inputs():
+        return (torch.randn(B, EXTRAS_D, generator=gen, device=dev),
+                torch.randn(B, EXTRAS_L, EXTRAS_D, generator=gen, device=dev),
+                torch.rand(B, EXTRAS_L, 3, generator=gen, device=dev))
+
+    def on_both(module, seed):
+        """A seeded module on the card, and a copy of it on the CPU, both in
+        eval mode: ``fn(*args)`` runs the copy whose device the args are on."""
+        module = nn.seeded_init_(module, torch.Generator().manual_seed(seed)).eval()
+        cpu = copy.deepcopy(module)
+        module.to(dev)
+        return lambda *a: (module if a[0].is_cuda else cpu)(*a)
+
+    single = on_both(nn.SingleFeatProcessor(cfg), 73)
+    run.piece("SingleFeatProcessor (dist + angle, NetVLAD, self/cross x 2)", single, inputs(), tol=EXTRAS_TOL, knn=1)
+    pair = on_both(nn.PairwiseFeatProcessor(cfg), 74)
+    run.piece("PairwiseFeatProcessor", pair, inputs() + inputs(), tol=EXTRAS_TOL, knn=2)
+    x = torch.randn(B, EXTRAS_L, EXTRAS_D, generator=gen, device=dev)
+    pos = torch.randn(B, EXTRAS_L, EXTRAS_D, generator=gen, device=dev)
+    for k in (None, 64):
+        layer = on_both(nn.TransformerEncoderLayer(EXTRAS_D, 4, 2048, linear_attention_k=k, seq_len=EXTRAS_L), 75)
+        run.piece(f"TransformerEncoderLayer (nhead 4, ff 2048, linear_attention_k {k})", layer, (x, pos),
+                  tol=EXTRAS_TOL)
+    wide = torch.rand(B, CBAM_L, EXTRAS_D, generator=gen, device=dev)
+    run.piece("CBAM", on_both(nn.CBAM(EXTRAS_D), 76), (wide,), tol=EXTRAS_TOL)
+    run.piece("SEAttention", on_both(nn.SEAttention(EXTRAS_D), 77), (wide,), tol=EXTRAS_TOL)
+    measured(f"phase 12 (nn extras): B={B}, {EXTRAS_L} positions, d_model {EXTRAS_D}; CBAM and SE over "
+             f"({B}, {CBAM_L}, {EXTRAS_D})", "; ".join(run.lines))
+    run.lines.clear()
+
+
+def phase_extras(torch, ops, mods, records, dev):
+    """Phase 12: the remaining point ops, the miners and auxiliary losses,
+    and ``nn/extras.py`` at full width, each against the same port code on
+    the CPU (and the plain kernels where K2 is on its path). Returns every
+    run's launch counts."""
+    from patchaugnet_tpu_torch import losses, nn
+
+    t_phase = time.perf_counter()
+    run = ExtrasRun(torch, mods, records)
+    extras_point_ops(torch, ops, run, dev)
+    extras_losses(torch, losses, run, dev)
+    extras_blocks(torch, nn, run, dev)
+    say(f"phase 12 (extras): {time.perf_counter() - t_phase:.1f} s")
+    return run.paths
+
+
 def main():
     global CARD
     import torch
@@ -2765,17 +3079,18 @@ def main():
     deploy_counts = phase_deploy(torch, mods, records, dev)
     precision_counts = phase_precision(torch, mods, records, dev)
     parallel_counts = phase_parallel(torch, mods, records, dev)
+    extras_counts = phase_extras(torch, ops, mods, records, dev)
 
     # each kernel's launches on its paths: K1-K3 serving, K6 emd_loss, K4
     # the row-chunked auction, K1 and K2 the train step and its centres,
     # the CLIs' epoch, eval and refresh, and PPT-Net's and PointNetVLAD's
     # serving, train steps and CLIs, MinkLoc3Dv2's (none), the
     # deployment's artifacts, in the fresh serving process and here, and
-    # the bf16 forwards and steps and the REMAT step (each run counts only
-    # its own kernels)
+    # the bf16 forwards and steps and the REMAT step, the parallel layer's
+    # runs and the extras of phase 12 (each run counts only its own kernels)
     paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts, a2a_counts, *cli_counts,
              *family_counts,
-             *minkloc_counts, *deploy_counts, *precision_counts, *parallel_counts)
+             *minkloc_counts, *deploy_counts, *precision_counts, *parallel_counts, *extras_counts)
     launches = {name: sum(counts.get(name, 0) for counts in paths) for name in serving_counts}
     # K5 (``topk_extract_pair``) is K3's function by K3's kernel, on no path
     # (the JAX package dispatches it nowhere): its line repeats K3's times

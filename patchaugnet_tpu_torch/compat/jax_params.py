@@ -11,6 +11,7 @@ names follow the JAX tree, so the mapping is a walk over
   (out, in); ``params[P]["bias"]`` -> ``bias``;
 - ``BatchNorm`` at P: ``params[P]["scale"/"bias"]`` -> ``weight``/``bias``;
   ``batch_stats[P]["mean"/"var"]`` -> ``running_mean``/``running_var``;
+- ``nn.LayerNorm`` at P: ``params[P]["scale"/"bias"]`` -> ``weight``/``bias``;
 - any other parameter ``name`` of a module at P: ``params[P][name]``.
 
 It is strict: a missing key, a leaf of the tree that no module takes, or
@@ -33,6 +34,7 @@ from torch import nn
 from ..nn.core import BatchNorm
 
 _LINEAR = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
+_LAYER_NORM = {"weight": ("params", "scale"), "bias": ("params", "bias")}
 _BATCH_NORM = {
     "weight": ("params", "scale"),
     "bias": ("params", "bias"),
@@ -67,6 +69,8 @@ def _tensors(model: nn.Module) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor, 
             table = _LINEAR
         elif isinstance(module, BatchNorm):
             table = _BATCH_NORM
+        elif isinstance(module, nn.LayerNorm):
+            table = _LAYER_NORM
         else:
             table = {}
         own = [*module.named_parameters(recurse=False), *module.named_buffers(recurse=False)]

@@ -1,8 +1,24 @@
 """Losses: the metric losses on global descriptors (``metric.py``), the
 patch feature contrast (``patch_contrast.py``), the reconstruction
-losses (``recon.py``), with the reference's string dispatch, and
-TruncatedSmoothAP (``extra.py``, the MinkLoc3Dv2 trainer's loss)."""
-from .extra import cosine_affinity, truncated_smooth_ap
+losses (``recon.py``), with the reference's string dispatch; TruncatedSmoothAP
+(the MinkLoc3Dv2 trainer's loss), the multi-similarity and focal losses
+(``extra.py``); the batch-hard miners, the contrastive quadruplet loss and
+the pose-estimation losses (``miners.py``). The dispatch table names the
+same losses as the JAX package's."""
+from .extra import (
+    binary_focal_loss,
+    cosine_affinity,
+    focal_loss,
+    multi_similarity_loss,
+    truncated_smooth_ap,
+)
+from .miners import (
+    batch_hard_contrastive_loss,
+    batch_hard_triplet_loss,
+    contrastive_quadruplet_loss,
+    ot_loss,
+    pps_loss,
+)
 from .metric import (
     best_pos_distance,
     hphn_quadruplet_loss,
@@ -56,4 +72,12 @@ __all__ = [
     "get_loss_func",
     "cosine_affinity",
     "truncated_smooth_ap",
+    "multi_similarity_loss",
+    "binary_focal_loss",
+    "focal_loss",
+    "batch_hard_triplet_loss",
+    "batch_hard_contrastive_loss",
+    "contrastive_quadruplet_loss",
+    "ot_loss",
+    "pps_loss",
 ]

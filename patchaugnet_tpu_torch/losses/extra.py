@@ -1,13 +1,18 @@
-"""TruncatedSmoothAP, the MinkLoc3Dv2 training loss.
+"""TruncatedSmoothAP (the MinkLoc3Dv2 training loss), the
+multi-similarity loss and the focal losses.
 
-Port of ``cosine_affinity`` and ``truncated_smooth_ap`` of
-``patchaugnet_tpu/losses/extra.py`` (reference
-``losses/truncated_smoothap.py:11-107``): the reference's dynamic row
-filtering as masked means. The positives a query ranks against are its
-``positives_per_query`` most similar ones, picked as ``lax.top_k`` picks
-them, the lowest index first among ties (a row with fewer positives
-takes the lowest-index fills). The multi-similarity and focal losses of
-that module are not ported (ROADMAP A9).
+Port of ``patchaugnet_tpu/losses/extra.py``:
+  - :func:`truncated_smooth_ap` (reference
+    ``losses/truncated_smoothap.py:11-107``): the reference's dynamic row
+    filtering as masked means. The positives a query ranks against are its
+    ``positives_per_query`` most similar ones, picked as ``lax.top_k``
+    picks them, the lowest index first among ties (a row with fewer
+    positives takes the lowest-index fills);
+  - :func:`multi_similarity_loss` (``MultiSimilarityLoss._forward_apn``,
+    ``losses/multi_similarity_loss.py:25-47``): the dynamic negative filter
+    as a multiplicative mask inside the log-sum-exp, summed with ``log1p``;
+  - :func:`binary_focal_loss` and :func:`focal_loss`
+    (``losses/focal_loss.py:5-64``).
 """
 from __future__ import annotations
 
@@ -73,3 +78,69 @@ def truncated_smooth_ap(
         "avg_embedding_norm": torch.linalg.vector_norm(embeddings, dim=1).mean(),
     }
     return loss, stats
+
+
+def _cosine_sim_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity of matching rows."""
+    return (l2_normalize(a, -1) * l2_normalize(b, -1)).sum(dim=-1)
+
+
+def multi_similarity_loss(
+    a_feat: torch.Tensor,
+    p_feat: torch.Tensor,
+    n_feat: torch.Tensor,
+    thresh: float = 0.5,
+    margin: float = 0.3,
+    scale_pos: float = 2.0,
+    scale_neg: float = 40.0,
+) -> torch.Tensor:
+    """The 'apn' mode over ``(b, k, d)`` anchor, positive and negative rows
+    (or ``(k, d)``, one group): per group the positive and the kept
+    negative terms (a negative is kept when its similarity plus ``margin``
+    exceeds the least positive similarity), the mean over the groups that
+    keep a negative."""
+    if a_feat.dim() == 2:
+        a_feat, p_feat, n_feat = (x[None] for x in (a_feat, p_feat, n_feat))
+    pos_sim = _cosine_sim_rows(a_feat, p_feat)             # (b, k)
+    neg_sim = _cosine_sim_rows(a_feat, n_feat)             # (b, k)
+    min_pos = pos_sim.amin(dim=1, keepdim=True)
+    neg_keep = (neg_sim + margin > min_pos).to(pos_sim.dtype)
+    pos_loss = (1.0 / scale_pos) * torch.log1p(torch.exp(-scale_pos * (pos_sim - thresh)).sum(dim=1))
+    neg_loss = (1.0 / scale_neg) * torch.log1p((torch.exp(scale_neg * (neg_sim - thresh)) * neg_keep).sum(dim=1))
+    has_neg = (neg_keep.sum(dim=1) > 0).to(pos_sim.dtype)
+    return ((pos_loss + neg_loss) * has_neg).sum() / has_neg.sum().clamp_min(1.0)
+
+
+def binary_focal_loss(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    gamma: float = 2.0,
+    alpha: float = 0.25,
+    epsilon: float = 1e-9,
+    with_logit: bool = False,
+) -> torch.Tensor:
+    """Binary focal loss, the mean over every element; ``logits`` are
+    probabilities unless ``with_logit``."""
+    p = torch.sigmoid(logits) if with_logit else logits
+    t = target.to(p.dtype)
+    loss = -alpha * t * (1 - p) ** gamma * torch.log(p + epsilon)
+    loss = loss + -(1 - alpha) * (1 - t) * p ** gamma * torch.log(1 - p + epsilon)
+    return loss.mean()
+
+
+def focal_loss(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    gamma: float = 2.0,
+    alpha: float = 1.0,
+    epsilon: float = 1e-9,
+) -> torch.Tensor:
+    """Multi-class focal loss over ``(N, C)`` logits and ``(N,)`` integer
+    labels, class 0 ignored; the mean over rows of the sum over classes.
+    A label outside ``[0, C)`` contributes nothing (``jax.nn.one_hot``)."""
+    num_labels = logits.shape[-1]
+    one_hot = (target[..., None] == torch.arange(num_labels, device=logits.device)).to(logits.dtype)
+    one_hot[:, 0] = 0.0                                    # ignore index 0
+    p = torch.softmax(logits, dim=-1)
+    loss = -alpha * one_hot * (1 - p) ** gamma * torch.log(p + epsilon)
+    return loss.sum(dim=1).mean()

@@ -132,14 +132,17 @@ class BatchNorm(nn.Module):
     reduced over every leading axis as flax does (``use_fast_variance``:
     ``var = max(mean(x^2) - mean(x)^2, 0)``, the biased variance), and
     updates the running statistics in place:
-    ``running = BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch``
-    (not inside :func:`frozen_running_stats`); inside
+    ``running = momentum * running + (1 - momentum) * batch``, flax's
+    convention (``momentum`` is ``BN_MOMENTUM`` unless given; CBAM's
+    spatial attention takes 0.99), not inside
+    :func:`frozen_running_stats`; inside
     :func:`batch_stats_group` the batch statistics are the group's. A lower-precision input is
     reduced and normalised in f32, and the result cast back to its dtype.
     """
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, momentum: float = BN_MOMENTUM):
         super().__init__()
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -162,12 +165,13 @@ class BatchNorm(nn.Module):
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """``running = BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch``,
-        in place, unless inside :func:`frozen_running_stats`."""
+        """``running = momentum * running + (1 - momentum) * batch``, in
+        place, unless inside :func:`frozen_running_stats`."""
         if _frozen_running_stats:
             return
-        self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
-        self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
 
 class SharedMLP(nn.Module):
@@ -239,7 +243,7 @@ def seeded_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     their JAX initialisers make them. BatchNorm scale and running variance
     are uniform in [0.5, 1.5] and its bias and running mean normal with
     std 0.1, away from the 1/0 defaults, so that an eval forward exercises
-    every BN.
+    every BN; a LayerNorm's scale and bias likewise.
     """
     for module in model.modules():
         own = [*module.named_parameters(recurse=False), *module.named_buffers(recurse=False)]
@@ -249,7 +253,7 @@ def seeded_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             shape = tuple(t.shape)
             if name in values:
                 value = torch.full(shape, values[name])
-            elif isinstance(module, BatchNorm) and name in ("weight", "running_var"):
+            elif isinstance(module, (BatchNorm, nn.LayerNorm)) and name in ("weight", "running_var"):
                 value = torch.rand(shape, generator=generator) + 0.5
             elif name in ("bias", "running_mean"):
                 value = torch.randn(shape, generator=generator) * 0.1
@@ -275,13 +279,13 @@ def training_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     the JAX CLIs call ``model.init``): the weights of :func:`seeded_init_`
     (normal with std ``1/sqrt(fan_in)``, the ``zero_init`` modules at
     zero, so every STN3D starts at the identity), zero biases, and every
-    BatchNorm at its defaults (scale 1, bias 0, running mean 0, running
-    variance 1)."""
+    BatchNorm and LayerNorm at its defaults (scale 1, bias 0, running mean
+    0, running variance 1)."""
     seeded_init_(model, generator)
     for module in model.modules():
         for name, t in [*module.named_parameters(recurse=False), *module.named_buffers(recurse=False)]:
             if name in ("bias", "running_mean"):
                 t.zero_()
-            elif isinstance(module, BatchNorm) and name in ("weight", "running_var"):
+            elif isinstance(module, (BatchNorm, nn.LayerNorm)) and name in ("weight", "running_var"):
                 t.fill_(1.0)
     return model

@@ -1,8 +1,9 @@
 """Gather / group / 3-NN interpolation (channels-last ``(b, n, c)``).
 
-Port of ``gather``, ``group``, ``three_nn``, ``three_interpolate``,
-``interpolate_features`` and ``query_and_group_edge`` of
-``patchaugnet_tpu/ops/grouping.py``. Indices come out of the public
+Port of ``patchaugnet_tpu/ops/grouping.py``: ``gather``, ``group``,
+``three_nn``, ``three_interpolate``, ``interpolate_features``,
+``query_and_group_edge`` (ball, kNN or given neighbours),
+``query_and_group`` and ``group_all``. Indices come out of the public
 functions as int32, as in the JAX package; :func:`gather` widens them to
 int64 for ``index_select``. Callers pass in-range indices.
 """
@@ -13,7 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import contracts
-from .knn import dilated_knn, knn
+from .knn import ball_query, dilated_knn, knn
 
 
 def gather(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -92,32 +93,108 @@ class GroupedEdgeFeatures(NamedTuple):
     sample_idx: torch.Tensor     # (b, m, k) int32 neighbour indices
 
 
-def query_and_group_edge(
+def _neighbours(
     xyz: torch.Tensor,
     new_xyz: torch.Tensor,
-    features: torch.Tensor,
-    center_features: torch.Tensor,
+    nsample: int,
+    radius: Optional[float],
+    knn_dilation: int,
+    generator: Optional[torch.Generator],
+    approx_recall: Optional[float],
+) -> torch.Tensor:
+    """The neighbour table of a query + group: the ball query at ``radius``,
+    else the dilated kNN (K2 on the card)."""
+    if radius is not None:
+        return ball_query(radius, nsample, xyz, new_xyz)
+    return dilated_knn(xyz, new_xyz, nsample, knn_dilation, generator=generator, approx_recall=approx_recall)
+
+
+def query_and_group_edge(
+    xyz: torch.Tensor,
+    new_xyz: Optional[torch.Tensor],
+    features: Optional[torch.Tensor],
+    center_features: Optional[torch.Tensor],
     *,
     nsample: int,
+    radius: Optional[float] = None,
     knn_dilation: int = 1,
+    use_xyz: bool = True,
+    idx: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
     approx_recall: Optional[float] = None,
 ) -> GroupedEdgeFeatures:
-    """EdgeConv-style kNN query + group (reference ``QueryAndGroup_Edge``).
+    """EdgeConv-style query + group (reference ``QueryAndGroup_Edge``).
 
-    Grouped xyz are centred on ``new_xyz``; grouped features are centred
-    on ``center_features`` when ``nsample > 1``. Output layout is
-    channels-last: ``(b, m, k, 3 + c)``, at the features' dtype: below f32
-    the centred xyz are rounded to it (the JAX version concatenates in f32,
-    and the next product rounds the same values). The kNN runs on the f32
-    xyz; ``approx_recall`` as ``ops.knn``. (The radius query, the
-    precomputed-index and the xyz-only forms of the JAX version are not
-    ported yet.)
+    The neighbours are ``idx`` when given, else the ball query at
+    ``radius``, else the dilated kNN on the f32 xyz (``generator`` shuffles
+    the k neighbours at ``knn_dilation > 1``, the JAX version's ``key``;
+    ``approx_recall`` as ``ops.knn``). ``new_xyz`` None queries ``xyz``
+    itself. Grouped xyz are centred on ``new_xyz``; grouped features are
+    centred on ``center_features`` when ``nsample > 1``. Output layout is
+    channels-last: ``(b, m, k, 3 + c)`` with ``use_xyz``, ``(b, m, k, c)``
+    without, the centred xyz alone when ``features`` is None; at the
+    features' dtype: below f32 the centred xyz are rounded to it (the JAX
+    version concatenates in f32, and the next product rounds the same
+    values).
     """
-    idx = dilated_knn(xyz, new_xyz, nsample, knn_dilation, approx_recall=approx_recall)
+    if new_xyz is None:
+        new_xyz = xyz
+    if idx is None:
+        idx = _neighbours(xyz, new_xyz, nsample, radius, knn_dilation, generator, approx_recall)
     o_grouped_xyz = group(xyz, idx)                        # (b, m, k, 3)
     grouped_xyz = o_grouped_xyz - new_xyz[:, :, None, :]
+    if features is None:
+        if not use_xyz:
+            raise ValueError("query_and_group_edge: need features or use_xyz")
+        return GroupedEdgeFeatures(grouped_xyz, o_grouped_xyz, idx)
     grouped_feats = group(features, idx)                   # (b, m, k, c)
     if nsample > 1:
         grouped_feats = grouped_feats - center_features[:, :, None, :]
+    if not use_xyz:
+        return GroupedEdgeFeatures(grouped_feats, o_grouped_xyz, idx)
     new_features = torch.cat([grouped_xyz.to(grouped_feats.dtype), grouped_feats], dim=-1)
     return GroupedEdgeFeatures(new_features, o_grouped_xyz, idx)
+
+
+def query_and_group(
+    xyz: torch.Tensor,
+    new_xyz: Optional[torch.Tensor],
+    features: Optional[torch.Tensor],
+    *,
+    nsample: int,
+    radius: Optional[float] = None,
+    use_xyz: bool = True,
+    idx: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain (non-edge) query + group (reference ``QueryAndGroup``,
+    ``pointops.py:476-516``): the neighbours as :func:`query_and_group_edge`
+    finds them (no shuffle), grouped xyz centred on the query, grouped
+    features not centred. Returns ``(b, m, k, 3 + c)`` (``(b, m, k, c)``
+    without ``use_xyz``, ``(b, m, k, 3)`` without features), the
+    concatenation at the promoted dtype, as in the JAX version."""
+    if new_xyz is None:
+        new_xyz = xyz
+    if idx is None:
+        idx = _neighbours(xyz, new_xyz, nsample, radius, 1, None, None)
+    grouped_xyz = group(xyz, idx) - new_xyz[:, :, None, :]
+    if features is None:
+        if not use_xyz:
+            raise ValueError("query_and_group: need features or use_xyz")
+        return grouped_xyz
+    grouped_feats = group(features, idx)
+    if use_xyz:
+        return torch.cat([grouped_xyz, grouped_feats], dim=-1)
+    return grouped_feats
+
+
+def group_all(xyz: torch.Tensor, features: Optional[torch.Tensor], use_xyz: bool = True) -> torch.Tensor:
+    """Reference ``GroupAll`` (``pointops.py:637-661``): one group of all
+    points, ``(b, 1, n, 3 + c)`` channels-last (``(b, 1, n, c)`` without
+    ``use_xyz``; the xyz alone without features)."""
+    grouped_xyz = xyz[:, None, :, :]
+    if features is None:
+        return grouped_xyz
+    grouped = features[:, None, :, :]
+    if use_xyz:
+        return torch.cat([grouped_xyz, grouped], dim=-1)
+    return grouped

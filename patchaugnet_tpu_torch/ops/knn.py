@@ -1,6 +1,8 @@
-"""k-nearest-neighbour queries on fixed-shape point sets (kernel K2).
+"""k-nearest-neighbour and ball queries on fixed-shape point sets (kernel K2).
 
-Port of ``knn`` and ``dilated_knn`` of ``patchaugnet_tpu/ops/knn.py``.
+Port of ``patchaugnet_tpu/ops/knn.py``: ``knn``, ``dilated_knn``,
+``knn_exclude_self`` (K2 at k + 1) and ``ball_query`` (plain torch ops, no
+kernel, as in the JAX package, where XLA forms it).
 The kernel replaces ``knn_fused_pallas`` (``patchaugnet_tpu/ops/pallas/
 knn.py``, ``_fused_knn_kernel`` + ``_extract_sweeps``): exact kNN of 3-d
 points with the squared distances formed in the kernel, ascending, the
@@ -183,6 +185,46 @@ def dilated_knn(
         perm = torch.randperm(k, generator=generator, device=generator.device)
         idx = idx[..., perm.to(idx.device)]
     return idx
+
+
+def ball_query(radius: float, k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
+    """Fixed-size radius query with the reference's padding semantics
+    (``ballquery_cuda_kernel.cu:6-60``): the first ``k`` points within
+    ``radius`` of each query in index order, the trailing slots padded with
+    the first in-radius index, zeros where no point is in the ball.
+
+    Membership is ``pairwise_sqdist < radius * radius`` (the square rounded
+    to f32, as JAX rounds its weak-typed constant), on the direct-difference
+    form at d <= 4, the bits of the JAX version. The first k in-ball indices
+    are the top k of an int32 score (``-index`` in the ball, INT32_MIN out),
+    as ``lax.top_k`` takes them. Forms the ``(b, m, n)`` distances and the
+    score: 512 MiB each at b=32, m=1024, n=4096.
+
+    Returns ``(b, m, k)`` int32 indices.
+    """
+    contracts.check_features(xyz, "xyz")
+    contracts.check_features(new_xyz, "new_xyz")
+    contracts.check_same_batch(xyz, new_xyz, "xyz", "new_xyz")
+    contracts.check_k(k, xyz.shape[-2])
+    d = pairwise_sqdist(new_xyz, xyz)                      # (b, m, n)
+    in_ball = d < torch.full((), radius * radius, dtype=d.dtype, device=d.device)
+    empty = torch.iinfo(torch.int32).min
+    iota = torch.arange(xyz.shape[-2], dtype=torch.int32, device=d.device)
+    score = torch.where(in_ball, -iota, empty)
+    top = torch.topk(score, k, dim=-1).values              # (b, m, k), descending
+    valid = top != empty
+    idx = torch.where(valid, -top, 0)
+    idx = torch.where(valid, idx, idx[..., :1])            # pad with the first in-radius index
+    return torch.where(valid[..., :1], idx, 0)             # no neighbour at all: zeros
+
+
+def knn_exclude_self(xyz: torch.Tensor, new_xyz: Optional[torch.Tensor], k: int) -> torch.Tensor:
+    """kNN without the closest match (reference ``KNNQueryExclude``,
+    ``pointops.py:436-473``): ranks ``1..k`` of :func:`knn` at ``k + 1``,
+    one K2 launch on the card. On duplicate points rank 0 is the lowest
+    index among the tied, which need not be the query itself."""
+    idx, _ = knn(xyz, new_xyz, k + 1)
+    return idx[..., 1:]
 
 
 LIB.impl("knn", _knn_kernel, "CUDA")

@@ -1,6 +1,7 @@
-"""Pairwise squared-distance primitive.
+"""Pairwise squared-distance primitives.
 
-Port of ``patchaugnet_tpu/ops/pairwise.py``. Two formulations,
+Port of ``patchaugnet_tpu/ops/pairwise.py``: :func:`pairwise_sqdist` and
+:func:`self_sqdist`. Two formulations,
 dispatched on the coordinate width:
 
 - ``d <= 4`` (xyz space): direct per-coordinate differences, starting
@@ -49,3 +50,10 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     xy = torch.einsum("...nd,...md->...nm", x, y)
     d = x2 + y2.transpose(-1, -2) - 2.0 * xy
     return d.clamp_min(0.0)
+
+
+def self_sqdist(x: torch.Tensor) -> torch.Tensor:
+    """``pairwise_sqdist(x, x)`` with exact zeros on the diagonal."""
+    d = pairwise_sqdist(x, x)
+    n = d.shape[-1]
+    return d.masked_fill(torch.eye(n, dtype=torch.bool, device=d.device), 0.0)
