@@ -201,7 +201,31 @@ Phases, each fatal on failure:
    layers self, cross, self, cross), ``TransformerEncoderLayer`` (nhead
    4, feed-forward 2048, with and without ``linear_attention_k``), and
    ``CBAM`` and ``SEAttention`` over (32, 1024, 256);
-13. report: one ``{"kernels": [...]}`` line, the card's name and power
+13. host remainder: both host
+   libraries of ``csrc/`` built with this machine's g++; FPFH native and
+   numpy on a 4096-point submap cloud at the reference's defaults (radius
+   0.05, max_nn 30/100; every row's 11-bin group sums within 1e-9, the
+   share of exact rows and the mass moved within ``tests/test_fpfh.py``'s
+   bounds), ms per cloud of each; a file-backed Oxford-format scene under
+   ``PCR_DATA_ROOT`` in a temporary directory (two trips of float64 ``.bin``
+   submaps of 4096 points and their CSVs), ``create_dataset_torch.py`` on
+   it, the .pb overlap records written by ``save_overlap_pb`` from
+   ``synthetic_overlaps`` on each query and positive, then
+   ``train_torch.py`` on the flagship config for 2 batches with the patch
+   losses (each batch's tables from the .pb, K1 3 + 1 and K2 6 launches per
+   batch, the clouds through the native loader and equal to the numpy
+   route's); ``utils.geometry.nn_angle`` at (32, 128) on the card against
+   the CPU and the plain kernels (K2 once a call); ``get_overlap_indices``
+   and ICP on two 4096-point clouds a known rigid transform apart (ICP
+   recovers it within 1e-9), ms of each; one B=32 flagship forward under
+   ``utils.profiling.trace``, whose Chrome trace names 3 ``pan::fps`` and 6
+   ``pan::knn`` calls and as many K1 and K2 kernels on the card (the CLI
+   run and the traced forward each in a fresh process where protobuf,
+   TensorBoard, sklearn, pandas, PyYAML and matplotlib cannot be imported,
+   and which fails on any attempt to import protobuf);
+   ``compare_pose_errors``, and a plot that raises the ``ImportError``
+   naming matplotlib where matplotlib is not installed;
+14. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2799,12 +2823,13 @@ def max_err(torch, a, b):
 
 
 class ExtrasRun:
-    """Phase 12's bookkeeping: each piece run on the card (counted), timed,
-    and held against the same port code on the CPU from the same inputs
-    (and, where K2 is on its path, against the plain kernels on the card)."""
+    """Phases 12 and 13's bookkeeping: each piece run on the card (counted),
+    timed, and held against the same port code on the CPU from the same
+    inputs (and, where K2 is on its path, against the plain kernels on the
+    card)."""
 
-    def __init__(self, torch, mods, records):
-        self.torch, self.mods, self.records = torch, mods, records
+    def __init__(self, torch, mods, records, phase=12):
+        self.torch, self.mods, self.records, self.phase = torch, mods, records, phase
         self.paths, self.lines = [], []
 
     def piece(self, name, fn, args, tol=0.0, knn=0):
@@ -2815,23 +2840,23 @@ class ExtrasRun:
         torch = self.torch
         with torch.no_grad():
             got, counts, _ = counted(torch, self.mods, self.records, lambda: fn(*args))
-        check_launches(counts, {"knn": knn}, f"phase 12 {name}")
+        check_launches(counts, {"knn": knn}, f"phase {self.phase} {name}")
         self.paths.append(counts)
         with torch.no_grad():
             cpu = fn(*to_cpu(args))
         err = max_err(torch, got, cpu)
         if err > tol:
-            raise AssertionError(f"phase 12 {name}: card against CPU max abs err {err} (allowed {tol})")
+            raise AssertionError(f"phase {self.phase} {name}: card against CPU max abs err {err} (allowed {tol})")
         text = f"card against CPU {'equal' if err == 0 else f'max abs err {err:.3g}'}"
         if knn:
             with torch.no_grad(), plain_kernels(self.mods):
                 before = read_counts(self.mods, self.records)
                 ref = fn(*args)
                 if read_counts(self.mods, self.records) != before:
-                    raise AssertionError(f"phase 12 {name}: the plain run launched a kernel")
+                    raise AssertionError(f"phase {self.phase} {name}: the plain run launched a kernel")
             perr = max_err(torch, got, ref)
             if perr > tol:
-                raise AssertionError(f"phase 12 {name}: kernels against plain kernels max abs err {perr}")
+                raise AssertionError(f"phase {self.phase} {name}: kernels against plain kernels max abs err {perr}")
             text += f", against the plain kernels {'equal' if perr == 0 else f'{perr:.3g}'}"
         with torch.no_grad():
             ms = time_ms(torch, lambda: fn(*args), EXTRAS_REPS)
@@ -2854,7 +2879,7 @@ class ExtrasRun:
             return loss.detach(), {k: v.detach() for k, v in stats.items()}, [x.grad for x in leaves]
 
         (loss, stats, grads), counts, _ = counted(torch, self.mods, self.records, lambda: run(floats, others))
-        check_launches(counts, {}, f"phase 12 {name}")
+        check_launches(counts, {}, f"phase {self.phase} {name}")
         self.paths.append(counts)
         c_loss, c_stats, c_grads = run(to_cpu(floats), to_cpu(others))
         rel = abs(loss.item() - c_loss.item()) / max(abs(c_loss.item()), 1e-30)
@@ -2865,9 +2890,9 @@ class ExtrasRun:
         excess = max(((g.cpu().double() - c.double()).abs() - LOSS_GRAD_RTOL * c.double().abs()).max().item()
                      for g, c in zip(grads, c_grads))
         if rel > LOSS_RTOL or bad or excess > LOSS_GRAD_ATOL or not torch.isfinite(loss):
-            raise AssertionError(f"phase 12 {name}: loss {loss.item()} against CPU {c_loss.item()} (rel {rel}), "
-                                 f"statistics differing {bad}, gradient error beyond {LOSS_GRAD_RTOL} relative "
-                                 f"{excess} (allowed {LOSS_GRAD_ATOL})")
+            raise AssertionError(f"phase {self.phase} {name}: loss {loss.item()} against CPU {c_loss.item()} "
+                                 f"(rel {rel}), statistics differing {bad}, gradient error beyond {LOSS_GRAD_RTOL} "
+                                 f"relative {excess} (allowed {LOSS_GRAD_ATOL})")
         ms = time_ms(torch, lambda: run(floats, others), EXTRAS_REPS)
         gmax = max((g.cpu() - c).abs().max().item() for g, c in zip(grads, c_grads))
         self.lines.append(f"{name} {ms:.4f} ms forward and backward, loss {loss.item():.6g} (rel err {rel:.3g}), "
@@ -3049,6 +3074,386 @@ def phase_extras(torch, ops, mods, records, dev):
     return run.paths
 
 
+# phase 13: the host-side remainder
+HOST_POINTS = N_POINTS                        # the FPFH, ICP and scene clouds
+FPFH_RADIUS, FPFH_MAX_NN = 0.05, (30, 100)    # the reference's get_fpfh defaults (scene_dataset.py:756-780)
+FPFH_GROUP_TOL = 1e-9                         # native against numpy: every row's 11-bin group sums
+FPFH_EXACT_ROWS, FPFH_MOVED_MASS = 0.85, 0.02   # and tests/test_fpfh.py's share of exact rows and mass moved
+FPFH_NATIVE_REPS = 5                          # timed native calls (one numpy call: seconds)
+HOST_TRIPS = ("2014-11-14-16-34-33", "2014-11-18-13-20-12")   # two of Oxford's trips (train and test splits)
+HOST_TRAIN_PER_TRIP, HOST_TEST_PER_TRIP = 24, 4   # submaps per trip: train split, test split (in the test box)
+HOST_OFFSET = (5730000.0, 620000.0)           # the train submaps' (northing, easting) origin, off Oxford's test box
+HOST_TEST_XY = (5735237.0, 620543.0)          # a vertex of Oxford's test region (dataset_info.py)
+HOST_CLI_BATCHES = 2                          # train_torch.py batches on the file-backed scene
+ICP_DEGREES, ICP_SHIFT = 5.0, (0.05, -0.03, 0.02)   # the known rigid transform between the two clouds
+ICP_TOL = 1e-9                                # the recovered transform against it, elementwise
+OVERLAP_DIST = 0.02                           # get_overlap_indices' max_dist on the normalised clouds
+ANGLE_M, ANGLE_K = 128, 3                     # nn_angle over the SA1 centres, k as the AngleEncoder's
+ANGLE_TOL = 1e-5                              # nn_angle's cosines, card against CPU (f32; measured equal on the CPU)
+HOST_REPS = 5                                 # timed host calls
+
+
+class ImportWatch:
+    """Records every attempt to import ``name`` (or a submodule of it) while
+    it is active, by a meta path finder placed first, and makes the attempt
+    fail (``ModuleNotFoundError``), as on a machine without the package.
+    The first attempt's stack is kept for the report."""
+
+    def __init__(self, name):
+        self.name, self.attempts, self.first_stack = name, [], None
+
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname == self.name or fullname.startswith(self.name + "."):
+            if not self.attempts:
+                import traceback
+
+                self.first_stack = "".join(traceback.format_stack(limit=12))
+            self.attempts.append(fullname)
+            raise ModuleNotFoundError(f"{fullname} is blocked in this run", name=fullname)
+        return None
+
+    def __enter__(self):
+        sys.meta_path.insert(0, self)
+        return self
+
+    def __exit__(self, *exc):
+        sys.meta_path.remove(self)
+
+
+def host_fpfh(np):
+    """Both host libraries built with this machine's g++; FPFH native and
+    numpy on one 4096-point submap cloud at the reference's defaults."""
+    from patchaugnet_tpu_torch.data import fpfh, fpfh_native, pointclouds
+    from patchaugnet_tpu_torch.ops.cuda import _host_build
+
+    t0 = time.perf_counter()
+    built = {name: _host_build.build(name) for name in _host_build.LIBRARIES}
+    build_s = time.perf_counter() - t0
+    cloud = pointclouds.synthetic_scene_clouds(np.random.RandomState(80), 1, HOST_POINTS)[0].astype(np.float64)
+    args = (cloud, FPFH_RADIUS, FPFH_RADIUS, *FPFH_MAX_NN)
+    native = fpfh_native.compute_fpfh_native(*args)
+    t0 = time.perf_counter()
+    for _ in range(FPFH_NATIVE_REPS):
+        fpfh_native.compute_fpfh_native(*args)
+    native_ms = (time.perf_counter() - t0) / FPFH_NATIVE_REPS * 1e3
+    t0 = time.perf_counter()
+    plain = fpfh.compute_fpfh(*args, use_native=False)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    if fpfh.compute_fpfh(*args).tobytes() != native.tobytes():
+        raise AssertionError("phase 13: compute_fpfh's default route is not the native one")
+    group = np.abs(plain.reshape(-1, 3, 11).sum(-1) - native.reshape(-1, 3, 11).sum(-1)).max()
+    diff = np.abs(plain - native)
+    exact = float((diff.max(1) <= FPFH_GROUP_TOL).mean())
+    moved = float(diff.sum() / plain.sum())
+    if not (group <= FPFH_GROUP_TOL and exact >= FPFH_EXACT_ROWS and moved <= FPFH_MOVED_MASS):
+        raise AssertionError(f"phase 13 FPFH: native against numpy, group sums differ by {group} (allowed "
+                             f"{FPFH_GROUP_TOL}), {exact:.4f} of rows exact, {moved:.4g} of the mass moved")
+    _, valid, _ = fpfh._hybrid_neighbors(cloud, FPFH_RADIUS, FPFH_MAX_NN[1])
+    measured(f"phase 13 FPFH, a {HOST_POINTS}-point submap cloud (unit sphere), radius {FPFH_RADIUS}, max_nn "
+             f"{FPFH_MAX_NN[0]}/{FPFH_MAX_NN[1]}, {valid.sum(1).mean():.2f} neighbours per point on average",
+             f"native {native_ms:.3f} ms per cloud ({os.cpu_count()} host cores), numpy {numpy_ms:.1f} ms per "
+             f"cloud; native against numpy: group sums max abs diff {group:.3g} (allowed {FPFH_GROUP_TOL}), "
+             f"{exact:.4f} of rows equal within it, {moved:.4g} of the mass moved by boundary flips (elementwise "
+             f"max {diff.max():.4g}); both libraries built with g++ in {build_s:.1f} s into "
+             f"{os.path.dirname(built['fpfh'])}")
+    return native_ms, numpy_ms
+
+
+def host_scene(np, root):
+    """Two Oxford-format trips of float64 ``.bin`` clouds under ``root``: the
+    train split is the synthetic scene's layout (each location a close pair
+    of submaps, revisited by the other trip), the test split a few submaps
+    in Oxford's test box."""
+    from patchaugnet_tpu_torch.data import SceneDataset
+
+    synth = SceneDataset("synthetic", for_training=True, device="cpu")
+    synth.create_synthetic(n_trips=len(HOST_TRIPS), n_per_trip=HOST_TRAIN_PER_TRIP, num_points=HOST_POINTS)
+    rng = np.random.RandomState(83)
+    for t, trip in enumerate(HOST_TRIPS):
+        rows = range(t * HOST_TRAIN_PER_TRIP, (t + 1) * HOST_TRAIN_PER_TRIP)
+        splits = {"pointcloud_20m_10overlap": [(1400000000000000 + 1000 * i + t, synth.records.northing[r]
+                                                + HOST_OFFSET[0], synth.records.easting[r] + HOST_OFFSET[1],
+                                                synth._clouds[r]) for i, r in enumerate(rows)],
+                  "pointcloud_20m": [(1500000000000000 + 1000 * i + t, HOST_TEST_XY[0] + 3.0 * i,
+                                      HOST_TEST_XY[1] + t, synth._clouds[i]) for i in range(HOST_TEST_PER_TRIP)]}
+        for submap_type, submaps in splits.items():
+            cloud_dir = os.path.join(root, "oxford", trip, submap_type)
+            os.makedirs(cloud_dir)
+            with open(cloud_dir + ".csv", "w") as f:
+                f.write("timestamp,northing,easting\n")
+                for stamp, north, east, cloud in submaps:
+                    f.write(f"{stamp},{north:.6f},{east:.6f}\n")
+                    cloud.astype(np.float64).tofile(os.path.join(cloud_dir, f"{stamp}.bin"))
+    return rng
+
+
+def host_cli(torch, np, mods, records, root):
+    """``create_dataset_torch.py`` on the file-backed scene, the .pb overlap
+    records written, then ``train_torch.py`` for two batches with the patch
+    losses on: clouds through the native loader, overlaps from the .pb."""
+    import create_dataset_torch
+    import train_torch
+    from patchaugnet_tpu_torch import train
+    from patchaugnet_tpu_torch.data import SceneDataset, fast_loader, save_overlap_pb, synthetic_overlaps
+
+    rng = host_scene(np, root)
+    t0 = time.perf_counter()
+    create_dataset_torch.main(["--datasets", "oxford"])
+    create_s = time.perf_counter() - t0
+    scene = SceneDataset("oxford", for_training=True, device="cpu")
+    if not scene.load() or len(scene) != len(HOST_TRIPS) * HOST_TRAIN_PER_TRIP:
+        raise AssertionError(f"phase 13: the created train split holds {len(scene)} records")
+    scene.native_loader = False                           # the numpy route, for the overlaps and the check below
+    t0 = time.perf_counter()
+    pb_files = entries = 0
+    for q in sorted(set().union(*scene.valid_indices_list)):
+        positives = scene.get_tuple(q).positive_indices
+        clouds, _ = scene.get_clouds([q, *positives], normalize=False)
+        per = {p: synthetic_overlaps(clouds[0], c, rng=rng) for p, c in zip(positives, clouds[1:])}
+        save_overlap_pb(os.path.join(scene.pickle_dir(), f"{scene.dataset_type}_overlap_indices_{q}.pb"), per,
+                        query_idx=q)
+        pb_files += 1
+        entries += sum(len(v) for v in per.values())
+    pb_s = time.perf_counter() - t0
+
+    loads = []
+    load_clouds = fast_loader.load_clouds
+
+    def counted_load(paths, *args, **kwargs):
+        out = load_clouds(paths, *args, **kwargs)
+        loads.append((list(paths), out[0], out[2]))
+        return out
+
+    fast_loader.load_clouds = counted_load
+    clock = HostClock()
+    clock.patch(train, "train_one_epoch", "epoch")
+    try:
+        reset_counts(mods, records)
+        run = train_torch.main(["--config", os.path.join(ROOT, CLI_CONFIG), "--dataset", "oxford", "--epochs", "1",
+                                "--max-batches", str(HOST_CLI_BATCHES), "--exp_dir", os.path.join(root, "train")])
+        torch.cuda.synchronize()
+        counts = read_counts(mods, records)
+    finally:
+        fast_loader.load_clouds = load_clouds
+        clock.undo()
+    summary = run["summaries"][0]
+    if summary["batches"] != HOST_CLI_BATCHES or summary["patch_batches"] != HOST_CLI_BATCHES:
+        raise AssertionError(f"phase 13 CLI: {summary['batches']} batches, {summary['patch_batches']} with overlap "
+                             f"tables (want {HOST_CLI_BATCHES} of each)")
+    per_batch = {k: CENTER_LAUNCHES.get(k, 0) + STEP_LAUNCHES.get(k, 0) for k in counts}
+    check_launches(counts, {k: v * HOST_CLI_BATCHES for k, v in per_batch.items()}, "phase 13 CLI train")
+    losses = {k: summary[k] for k in ("total", "place_recognition", "patch_recon_a2a", "patch_recon_a2b")}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"phase 13 CLI: epoch losses {losses}")
+    # the batches' clouds came through the native loader (each submap read
+    # once, then served from the scene's cache), equal to the numpy route's
+    files = [f for paths, _, _ in loads for f in paths]
+    clouds_per_batch = run["cfg"]["TRAIN_BATCH_SIZE"] * (2 + run["cfg"]["TRAIN_POSITIVES_PER_QUERY"]
+                                                         + run["cfg"]["TRAIN_NEGATIVES_PER_QUERY"])
+    if not files or len(set(files)) != len(files) or any(ok != len(paths) for paths, _, ok in loads):
+        raise AssertionError(f"phase 13 CLI: the native loader read {len(files)} files ({len(set(files))} distinct) "
+                             f"in {len(loads)} calls, not all of them whole")
+    index = {f: i for i, f in enumerate(scene.records.file)}
+    want, _ = scene.get_clouds([index[f] for f in files], normalize=False)
+    if not np.array_equal(np.concatenate([c for _, c, _ in loads]), want):
+        raise AssertionError("phase 13 CLI: the native loader's clouds differ from the numpy route's")
+    epoch_ms = clock.seconds["epoch"] * 1e3
+    measured(f"phase 13 CLI on a file-backed Oxford-format scene ({len(scene)} train submaps of {HOST_POINTS} "
+             f"float64 points, {pb_files} .pb overlap files, {entries} entries)",
+             f"create_dataset_torch.py {create_s:.2f} s, .pb records written in {pb_s:.2f} s; train_torch.py "
+             f"{HOST_CLI_BATCHES} batches of {clouds_per_batch} clouds with the patch losses: the epoch "
+             f"{epoch_ms:.1f} ms ({epoch_ms / HOST_CLI_BATCHES:.1f} ms per batch, the first batch's first calls "
+             f"included); launches {counts} (K1 3 + 1 and K2 6 per batch); {len(files)} clouds through the native "
+             f"loader in {len(loads)} calls, equal to the numpy route's; losses "
+             f"{({k: round(v, 6) for k, v in losses.items()})}")
+    return counts, epoch_ms
+
+
+def host_geometry(torch, np, run, dev):
+    """``utils.geometry``: ``nn_angle`` on the card (K2 once a call) against
+    the CPU and the plain kernels; ``get_overlap_indices`` and ICP on two
+    4096-point clouds related by a known rigid transform."""
+    from patchaugnet_tpu_torch.data import pointclouds
+    from patchaugnet_tpu_torch.utils import geometry
+
+    gen = torch.Generator(device=dev).manual_seed(84)
+    centres = torch.rand(B, ANGLE_M, 3, generator=gen, device=dev)
+    run.piece(f"utils.geometry.nn_angle ({B}, {ANGLE_M}) k={ANGLE_K}",
+              lambda c: torch.from_numpy(geometry.nn_angle(c.cpu().numpy(), ANGLE_K, device=c.device)),
+              (centres,), tol=ANGLE_TOL, knn=1)
+    src = pointclouds.synthetic_scene_clouds(np.random.RandomState(82), 1, HOST_POINTS)[0].astype(np.float64)
+    truth = np.eye(4)
+    truth[:3, :3] = geometry.rotation_matrix_z(np.radians(ICP_DEGREES))
+    truth[:3, 3] = ICP_SHIFT
+    tgt = geometry.apply_transform(src, truth)
+    geometry.get_overlap_indices(src, tgt, OVERLAP_DIST)                  # scipy.spatial imported outside the timing
+    t0 = time.perf_counter()
+    for _ in range(HOST_REPS):
+        sets = geometry.get_overlap_indices(src, tgt, OVERLAP_DIST)
+    overlap_ms = (time.perf_counter() - t0) / HOST_REPS * 1e3
+    t0 = time.perf_counter()
+    for _ in range(HOST_REPS):
+        found, rmse = geometry.icp_point_to_point(src, tgt)
+    icp_ms = (time.perf_counter() - t0) / HOST_REPS * 1e3
+    err = np.abs(found - truth).max()
+    if err > ICP_TOL or not (0 < len(sets[0]) < HOST_POINTS and 0 < len(sets[1]) < HOST_POINTS):
+        raise AssertionError(f"phase 13 ICP: transform max abs err {err} (allowed {ICP_TOL}); overlap sets of "
+                             f"{len(sets[0])} and {len(sets[1])}")
+    measured(f"phase 13 geometry, two {HOST_POINTS}-point submap clouds {ICP_DEGREES} deg about z and "
+             f"{ICP_SHIFT} apart",
+             f"get_overlap_indices (max_dist {OVERLAP_DIST}) {overlap_ms:.2f} ms, sets of {len(sets[0])} and "
+             f"{len(sets[1])}; icp_point_to_point {icp_ms:.2f} ms, transform max abs err {err:.3g} (allowed "
+             f"{ICP_TOL}), RRE {geometry.relative_rotation_error(found[:3, :3], truth[:3, :3]):.3g} deg, RTE "
+             f"{geometry.relative_translation_error(found[:3, 3], truth[:3, 3]):.3g}, RMSE {rmse:.3g}; "
+             + "; ".join(run.lines))
+    run.lines.clear()
+    return icp_ms
+
+
+def host_trace(torch, mods, records, dev, root):
+    """One B=32 flagship forward under ``utils.profiling.trace``: the Chrome
+    trace names 3 K1 and 6 K2 launches, on the host and on the card."""
+    from patchaugnet_tpu_torch import configs, serving
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import seeded_init_
+    from patchaugnet_tpu_torch.utils import trace
+
+    model = seeded_init_(get_model("patch_aug_net", configs.PATCH_AUG_NET), torch.Generator().manual_seed(0))
+    forward = serving.build_forward_fn(model, device=dev)
+    clouds = torch.rand(B, N_POINTS, 3, generator=torch.Generator(device=dev).manual_seed(85), device=dev)
+    forward(clouds)
+    torch.cuda.synchronize()
+    reset_counts(mods, records)
+    t0 = time.perf_counter()
+    with trace(os.path.join(root, "trace"), device=dev) as prof:
+        forward(clouds)
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts(mods, records)
+    check_launches(counts, FORWARD_LAUNCHES, "phase 13 traced forward")
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    host = {op: sum(e.get("name") == f"pan::{op}" for e in events) for op in ("fps", "knn")}
+    # the kernels' names, demangled or not (``fps_registers<512, 8>``, ``...13fps_registersILi512...``)
+    card = {op: sum(e.get("cat") == "kernel" and bool(re.search(pattern, e.get("name", ""))) for e in events)
+            for op, pattern in (("fps", r"fps_(registers|scratch)"), ("knn", r"knn_kernel"))}
+    if host != FORWARD_LAUNCHES or card != FORWARD_LAUNCHES:
+        named = [(e.get("cat"), e.get("name", "")[:120]) for e in events
+                 if "fps" in e.get("name", "").lower() or "knn" in e.get("name", "").lower()]
+        raise AssertionError(f"phase 13 trace: the host ops {host} and the card's kernels {card} (want "
+                             f"{FORWARD_LAUNCHES} of each); events naming fps or knn: {named}")
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    measured(f"phase 13 utils.profiling.trace over one B={B} flagship forward",
+             f"{os.path.getsize(prof.trace_path) / 2**20:.2f} MiB Chrome trace, {len(events)} events, {kernels} "
+             f"kernels on the card; pan::fps {host['fps']} and pan::knn {host['knn']} on the host, K1 {card['fps']} "
+             f"and K2 {card['knn']} on the card; {traced_ms:.1f} ms traced (the export included)")
+    return counts
+
+
+def host_visualization():
+    """``compare_pose_errors`` without matplotlib; a plot raises the
+    ``ImportError`` that names it (where matplotlib is installed, the plot
+    is drawn instead)."""
+    import importlib.util
+    import tempfile
+
+    from patchaugnet_tpu_torch.utils import visualization
+
+    summary = visualization.compare_pose_errors([(1.0, 0.1), (3.0, 0.3)], [(2.0, 0.2)], ("icp", "none"))
+    if summary["icp"]["rre_mean"] != 2.0 or summary["none"]["n"] != 1:
+        raise AssertionError(f"phase 13 compare_pose_errors: {summary}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plot_") as tmp:
+        out = os.path.join(tmp, "recall.png")
+        if importlib.util.find_spec("matplotlib") is None:
+            try:
+                visualization.plot_recall_curves({"a": [50.0, 60.0]}, out)
+            except ImportError as e:
+                if "matplotlib" not in str(e):
+                    raise AssertionError(f"phase 13: the plot's ImportError does not name matplotlib: {e}") from e
+                text = f"a plot raised ImportError({str(e)!r})"
+            else:
+                raise AssertionError("phase 13: a plot ran without matplotlib")
+        else:
+            visualization.plot_recall_curves({"a": [50.0, 60.0]}, out)
+            if not os.path.getsize(out):
+                raise AssertionError("phase 13: the plot wrote nothing")
+            text = "matplotlib is installed here: the plot was drawn"
+    say(f"phase 13 visualization: compare_pose_errors ran ({summary['icp']}); {text}")
+
+
+# the fresh processes of phase 13 (argv: the checkout, "cli" or "trace",
+# a scratch directory): the packages the card's machine lacks made
+# unimportable, protobuf blocked and watched, then ``host_cli`` (the data
+# root in that directory) or ``host_trace``; prints one JSON line with the
+# launch counts, the protobuf imports tried, and which of the blocked
+# packages this machine has installed
+HOST_SCRIPT = r"""
+import importlib, importlib.util, json, sys
+root, what, scratch = sys.argv[1:4]
+installed = {n: importlib.util.find_spec(n) is not None
+             for n in ("google.protobuf", "tensorboard", "sklearn", "pandas", "yaml", "matplotlib")}
+for name in ("pandas", "sklearn", "yaml", "matplotlib", "tensorboard", "jax", "jaxlib", "flax", "patchaugnet_tpu"):
+    sys.modules[name] = None
+sys.path.insert(0, root)
+import numpy as np
+import torch
+import chip_smoke as cs
+cs.CARD = cs.card_line()
+mods = {n: importlib.import_module(f"patchaugnet_tpu_torch.ops.{n}") for n in ("fps", "knn")}
+records = [cs.KernelRecord(n, n, "", "") for n in mods]
+with cs.ImportWatch("google.protobuf") as watch:
+    if what == "cli":
+        counts, _ = cs.host_cli(torch, np, mods, records, scratch)
+    else:
+        counts = cs.host_trace(torch, mods, records, torch.device("cuda"), scratch)
+print(json.dumps({"counts": counts, "protobuf_tried": watch.attempts, "first_stack": watch.first_stack,
+                  "installed": installed,
+                  "protobuf_loaded": sorted(m for m in sys.modules if m.startswith("google.protobuf"))}))
+"""
+
+
+def run_fresh(what, scratch, env=None):
+    """``HOST_SCRIPT`` for ``what`` in a fresh process; forwards its lines,
+    fails if it failed or protobuf was imported or tried in it, and returns
+    its report."""
+    proc = subprocess.run([sys.executable, "-c", HOST_SCRIPT, ROOT, what, scratch], env=env, capture_output=True,
+                          text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        say(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 13: the {what} process failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+    report = json.loads(lines[-1])
+    if report["protobuf_tried"] or report["protobuf_loaded"]:
+        raise AssertionError(f"phase 13 {what}: google.protobuf was imported or tried ({report['protobuf_tried']}, "
+                             f"loaded {report['protobuf_loaded']}), first from:\n{report['first_stack']}")
+    return report
+
+
+def phase_host(torch, mods, records, dev):
+    """Phase 13: the host-side remainder; the CLI run and the traced forward
+    each in a fresh process where protobuf cannot be imported. Returns the
+    launch counts of its paths."""
+    import tempfile
+
+    import numpy as np
+
+    from patchaugnet_tpu_torch.data import dataset_info
+
+    t_phase = time.perf_counter()
+    run = ExtrasRun(torch, mods, records, phase=13)
+    host_fpfh(np)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as root:
+        cli = run_fresh("cli", root, dict(os.environ, **{dataset_info.DATA_ROOT_ENV: root}))
+        traced = run_fresh("trace", root)
+    say(f"phase 13: google.protobuf never imported nor tried in the CLI and trace processes; this machine has "
+        f"installed {cli['installed']} (made unimportable there)")
+    host_geometry(torch, np, run, dev)
+    host_visualization()
+    cli_counts, trace_counts = ({rec.name: r["counts"].get(rec.name, 0) for rec in records} for r in (cli, traced))
+    say(f"phase 13 (host remainder): {time.perf_counter() - t_phase:.1f} s")
+    return [cli_counts, *run.paths, trace_counts]
+
+
 def main():
     global CARD
     import torch
@@ -3080,6 +3485,7 @@ def main():
     precision_counts = phase_precision(torch, mods, records, dev)
     parallel_counts = phase_parallel(torch, mods, records, dev)
     extras_counts = phase_extras(torch, ops, mods, records, dev)
+    host_counts = phase_host(torch, mods, records, dev)
 
     # each kernel's launches on its paths: K1-K3 serving, K6 emd_loss, K4
     # the row-chunked auction, K1 and K2 the train step and its centres,
@@ -3087,10 +3493,11 @@ def main():
     # serving, train steps and CLIs, MinkLoc3Dv2's (none), the
     # deployment's artifacts, in the fresh serving process and here, and
     # the bf16 forwards and steps and the REMAT step, the parallel layer's
-    # runs and the extras of phase 12 (each run counts only its own kernels)
+    # runs, the extras of phase 12 and the host remainder's CLI batches,
+    # nn_angle and traced forward (each run counts only its own kernels)
     paths = (serving_counts, emd_counts, chunked_counts, center_counts, step_counts, a2a_counts, *cli_counts,
              *family_counts,
-             *minkloc_counts, *deploy_counts, *precision_counts, *parallel_counts, *extras_counts)
+             *minkloc_counts, *deploy_counts, *precision_counts, *parallel_counts, *extras_counts, *host_counts)
     launches = {name: sum(counts.get(name, 0) for counts in paths) for name in serving_counts}
     # K5 (``topk_extract_pair``) is K3's function by K3's kernel, on no path
     # (the JAX package dispatches it nowhere): its line repeats K3's times

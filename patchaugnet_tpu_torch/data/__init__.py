@@ -1,11 +1,13 @@
 """Data engine: registry, scene dataset, tuple sampler, retrieval.
 
-Port of ``patchaugnet_tpu/data``; it exports what the JAX package's
-``data`` exports but the point-set augmentations of ``augment.py``, which
-the CLIs never pass. Importing it needs neither pandas, PyYAML, protobuf
-nor sklearn: pandas is imported to read a pickle that holds a DataFrame,
-PyYAML to read the dataset list of ``PCR_EXTRA_DATASETS``, protobuf to
-read or write a .pb overlap record.
+Port of ``patchaugnet_tpu/data``; it exports every name that the JAX
+package's ``data`` exports, and ``fpfh``, ``fpfh_native``,
+``fast_loader`` (the last two build the root ``csrc/`` sources with g++
+at first use) and ``wire`` (the .pb overlap records' wire format) are
+modules of it. Importing it needs neither pandas, PyYAML, protobuf nor
+sklearn: pandas is imported to read a pickle that holds a DataFrame,
+PyYAML to read the dataset list of ``PCR_EXTRA_DATASETS``; the .pb
+overlap records are read and written without protobuf.
 """
 from .dataset_info import DATA_ROOT_ENV, DatasetInfo, data_root, dataset_info_dict, get_dataset_info
 from .pointclouds import (
@@ -23,6 +25,16 @@ from .pointclouds import (
 from .scene_dataset import QueryPosNegTuple, Records, SceneDataset
 from .tuple_dataset import PlaceRecognitionDataset, TupleBatch
 from .retrieval import RecallResult, hard_negatives, hard_negatives_batch, recall_precision, topk_neighbors
+from .augment import (
+    jitter_points,
+    random_flip,
+    random_rotation,
+    random_translation,
+    remove_random_block,
+    remove_random_points,
+    train_set_transform,
+    train_transform,
+)
 from .overlap import (
     OverlapEntry,
     build_correspondences,
@@ -62,4 +74,12 @@ __all__ = [
     "save_overlap_pb",
     "synthetic_overlaps",
     "build_correspondences",
+    "jitter_points",
+    "remove_random_points",
+    "remove_random_block",
+    "random_translation",
+    "random_rotation",
+    "random_flip",
+    "train_transform",
+    "train_set_transform",
 ]

@@ -4,8 +4,8 @@ Port of ``patchaugnet_tpu/data/overlap.py``, the reference's host-side
 a2b matching pipeline:
   - per-query .pb files of ``QueryOverlapIndices``
     (scene_dataset.py:278-297, schema datasets/query_pos_neg_dataset.proto)
-    load through :mod:`.query_overlap_pb2` (the protobuf runtime is
-    imported on the first .pb read or write);
+    read and written by :mod:`.wire`, the protobuf wire format in plain
+    Python (no protobuf runtime; the same bytes as protobuf's);
   - geometry-derived overlap entries for the synthetic scene, on
     ``scipy.spatial.cKDTree`` (both it and sklearn's ``KDTree`` take the
     points at distance ``<= r``; scipy returns them sorted);
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..losses.patch_contrast import PatchCorrespondences
-from . import query_overlap_pb2
+from . import wire
 
 
 class OverlapEntry:
@@ -48,33 +48,22 @@ class OverlapEntry:
 
 
 def load_overlap_pb(path: str) -> Dict[int, List[OverlapEntry]]:
-    """Read a reference-format per-query .pb: positive_idx -> entries."""
-    msg = query_overlap_pb2.messages()["QueryOverlapIndices"]()
+    """Read a reference-format per-query .pb: positive_idx -> entries
+    (``inv_overlap_indices`` and unknown fields skipped; a positive
+    written twice keeps its last record, as the JAX package's reader)."""
     with open(path, "rb") as f:
-        msg.ParseFromString(f.read())
-    out: Dict[int, List[OverlapEntry]] = {}
-    for qp in msg.qp_overlap_indices:
-        out[qp.positive_idx] = [
-            OverlapEntry(u.idx1, u.near_indices2, u.far_indices2, u.bad_far_indices2)
-            for u in qp.overlap_indices
-        ]
-    return out
+        _, positives = wire.decode_query_overlap(f.read())
+    return {pos_idx: [OverlapEntry(*pair) for pair in pairs] for pos_idx, pairs in positives}
 
 
 def save_overlap_pb(path: str, per_positive: Dict[int, List[OverlapEntry]], query_idx: int = 0) -> None:
-    msg = query_overlap_pb2.messages()["QueryOverlapIndices"]()
-    msg.query_idx = query_idx
-    for pos_idx, entries in per_positive.items():
-        qp = msg.qp_overlap_indices.add()
-        qp.positive_idx = pos_idx
-        for e in entries:
-            u = qp.overlap_indices.add()
-            u.idx1 = e.idx1
-            u.near_indices2.extend(e.near_indices2)
-            u.far_indices2.extend(e.far_indices2)
-            u.bad_far_indices2.extend(e.bad_far_indices2)
+    """Write the .pb that protobuf's ``SerializeToString`` writes for the
+    same records (a value outside uint32 raises ``ValueError``)."""
+    data = wire.encode_query_overlap(query_idx, (
+        (pos_idx, [(e.idx1, e.near_indices2, e.far_indices2, e.bad_far_indices2) for e in entries])
+        for pos_idx, entries in per_positive.items()))
     with open(path, "wb") as f:
-        f.write(msg.SerializeToString())
+        f.write(data)
 
 
 def synthetic_overlaps(

@@ -3,8 +3,10 @@
 A copy of the serialized ``query_overlap.proto`` that protoc compiled
 into ``patchaugnet_tpu/data/query_overlap_pb2.py`` (package
 ``p2m.base_type``: ``Uint32Pair``, ``QueryPosOverlapIndices``,
-``QueryOverlapIndices`` and the dataset messages). The message classes
-are built on the first call of :func:`messages`, which imports the
+``QueryOverlapIndices`` and the dataset messages). The port reads and
+writes the overlap records with :mod:`.wire`, without protobuf; the
+message classes serve the tests that hold that codec against protobuf.
+They are built on the first call of :func:`messages`, which imports the
 protobuf runtime then: importing this module needs no protobuf.
 """
 from __future__ import annotations

@@ -21,12 +21,20 @@ Responsibilities kept:
     wall-clock stats (:494-711), fed fixed-size batches.
   - recall/precision per (query_trip, ref_trip) via the retrieval engine
     with reference-exact bookkeeping (:1016-1099).
+  - ``get_fpfh[s]``: FPFH features of a record's raw cloud (:mod:`.fpfh`,
+    float64 on the host), FIFO cached (:756-786).
 
 The records are a :class:`Records` column table (numpy), not a pandas
-DataFrame. Not ported: the FPFH features (``get_fpfh[s]``) and the
-native loader route of ``_load_raw_clouds`` (the numpy route reads the
-same clouds). The synthetic scene (``name='synthetic'``) is generated in
-memory so CI and smoke runs need no data on disk.
+DataFrame. A scene that is not self-collected and stores float64 clouds
+reads them through the native batch reader (:mod:`.fast_loader`, built
+from ``csrc/fast_loader.cc``), as the JAX package does where that library
+builds; here a build that fails raises, and ``native_loader = False``
+chooses the numpy route. The two give the same bits where the global
+offset is 0, as in every registered dataset that takes this route (the
+native reader rounds to float32 before the offset is subtracted, as in
+the JAX package). The synthetic scene
+(``name='synthetic'``) is generated in memory so CI and smoke runs need no
+data on disk.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 
 from ..utils.timestamps import timestamp2str
+from . import fpfh as fpfh_mod
 from . import retrieval
 from .dataset_info import get_dataset_info
 from .pointclouds import load_pc_file, normalize_point_cloud
@@ -194,7 +203,12 @@ class SceneDataset:
     """One scene (all trips), its tuples, and its descriptor store.
 
     ``device``: where the retrieval engine runs (the card unless the caller
-    asks for the CPU); creating and loading a scene needs no device."""
+    asks for the CPU); creating and loading a scene needs no device.
+    ``native_loader``: whether a file-backed scene of float64 clouds that
+    is not self-collected reads them with :mod:`.fast_loader` (set it
+    False, on the class or an instance, for the numpy route)."""
+
+    native_loader = True
 
     def __init__(self, name: str, for_training: bool, device: Union[str, torch.device] = "cuda"):
         self.name = name
@@ -231,6 +245,9 @@ class SceneDataset:
         # local kpt/desc cache for the rerank pipeline (:810-841)
         self._l_cache = _BoundedCache(lambda: self.cache_size)
         self._l_order = self._l_cache._order
+        # FPFH cache (reference fpfh_dict, scene_dataset.py:52-55), keyed on
+        # (idx, radius_normal, radius_feature)
+        self._fpfh_cache = _BoundedCache(lambda: self.cache_size)
         # model types whose on-disk store THIS process wrote (make_descs
         # with save_model_type): only those stores are safe to reload in
         # place of the in-memory descriptors
@@ -273,6 +290,7 @@ class SceneDataset:
         self._pc_cache.clear()
         self._g_desc_cache.clear()
         self._l_cache.clear()
+        self._fpfh_cache.clear()
         self._stores_written = set()
 
     # ----------------------------------------------------------- create
@@ -473,6 +491,11 @@ class SceneDataset:
         if self._clouds is not None:
             return [self._clouds[i] - offset for i in indices]
         files = [self.records.file[i] for i in indices]
+        if self.native_loader and not self.data_cfg["self_collected"] and self.data_cfg["cloud_dtype"] == np.float64:
+            from . import fast_loader
+
+            clouds, _, _ = fast_loader.load_clouds(files, self.num_points, normalize=False)
+            return [c - offset for c in clouds]
         return [
             load_pc_file(
                 f, dtype=self.data_cfg["cloud_dtype"],
@@ -511,6 +534,31 @@ class SceneDataset:
         pcs = [ready[i][0] for i in indices]
         metas = [ready[i][1] for i in indices]
         return np.asarray(pcs, np.float32), metas
+
+    def get_fpfh(
+        self,
+        idx: int,
+        radius_normal: float = 0.05,
+        radius_feature: float = 0.05,
+    ) -> np.ndarray:
+        """``(N, 33)`` float64 FPFH features of one record's raw cloud, FIFO
+        cached (reference get_fpfh, scene_dataset.py:756-780 — open3d
+        there, :mod:`.fpfh` here; the same radii defaults, the raw
+        un-normalised cloud like the reference's ``get_pc(idx)``)."""
+        ck = (idx, radius_normal, radius_feature)
+        if ck not in self._fpfh_cache:
+            pc, _ = self.get_clouds([idx], normalize=False)
+            self._fpfh_cache.put(ck, fpfh_mod.compute_fpfh(pc[0], radius_normal, radius_feature))
+        return self._fpfh_cache[ck]
+
+    def get_fpfhs(
+        self,
+        idxs: Sequence[int],
+        radius_normal: float = 0.05,
+        radius_feature: float = 0.05,
+    ) -> List[np.ndarray]:
+        """Reference get_fpfhs (scene_dataset.py:782-786)."""
+        return [self.get_fpfh(i, radius_normal, radius_feature) for i in idxs]
 
     def get_training_tuple(
         self,

@@ -17,10 +17,13 @@ from typing import Dict, Optional
 
 def get_logger(log_dir: Optional[str] = None, name: str = "patchaugnet_tpu_torch") -> logging.Logger:
     """The named logger, built once per process: console, and ``train.log``
-    in ``log_dir`` when one is given the first time."""
+    in ``log_dir`` when one is given the first time. A handler that a
+    caller attached before the first call (a test's capture) does not stop
+    the build, so INFO records reach it."""
     logger = logging.getLogger(name)
-    if logger.handlers:
+    if getattr(logger, "_built_by_get_logger", False):
         return logger
+    logger._built_by_get_logger = True
     logger.setLevel(logging.INFO)
     fmt = logging.Formatter("[%(asctime)s %(levelname)s %(filename)s:%(lineno)d] %(message)s")
     sh = logging.StreamHandler()

@@ -1,16 +1,18 @@
-"""Parameter counts, FLOPs and device timing.
+"""Parameter counts, FLOPs, device timing and trace capture.
 
 The port's counterpart of ``patchaugnet_tpu/utils/profiling.py``, which
 stands in for the reference's fvcore ``FlopCountAnalysis`` and
 ``parameter_count_table`` (utils/train_util.py:210-220, called at
 train_place_recognition.py:549-553) and its cuda-synchronised timing
-(scene_dataset.py:531-539).
+(scene_dataset.py:531-539); :func:`trace` takes the place of the JAX
+package's ``jax.profiler`` capture.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
@@ -81,3 +83,24 @@ class DeviceTimer:
     def stats(self, skip_first: bool = True) -> Dict[str, float]:
         t = np.array(self.times_ms[1:] if skip_first and len(self.times_ms) > 1 else self.times_ms)
         return {"mean_ms": float(t.mean()), "std_ms": float(t.std()), "n": len(t)}
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, device: Union[str, torch.device] = "cuda") -> Iterator[torch.profiler.profile]:
+    """``torch.profiler`` over the body: the host's operators (the kernels'
+    dispatcher calls ``pan::fps`` and ``pan::knn`` among them) and, on a
+    CUDA ``device``, every kernel the card ran (synchronised at the end).
+    Yields the profiler; on exit writes a Chrome trace (view it in
+    ``chrome://tracing`` or Perfetto) to ``log_dir/trace-<pid>-<ns>.json``,
+    whose path the profiler keeps as ``trace_path``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+        if on_card:
+            torch.cuda.synchronize(device)
+    prof.trace_path = os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")
+    prof.export_chrome_trace(prof.trace_path)
