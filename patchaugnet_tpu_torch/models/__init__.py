@@ -8,6 +8,7 @@ from typing import Any, Dict
 from torch import nn
 
 from ..nn.core import compute_dtype
+from .backbone import MSGLevelOutput, PointNet2SAModuleMSG
 from .patch_aug_net import PatchAugNet, PatchAugNetOutput, PatchData
 from .minkloc3dv2 import MinkLoc3Dv2, build_minkloc
 from .pointnet_vlad import PointNetFeat, PointNetVLAD
@@ -30,4 +31,5 @@ def get_model(model_type: str, param: Dict[str, Any]) -> nn.Module:
 
 
 __all__ = ["get_model", "PatchAugNet", "PatchAugNetOutput", "PatchData", "PPTNet", "PPTNetOutput",
-           "PointNetVLAD", "PointNetFeat", "MinkLoc3Dv2", "build_minkloc"]
+           "PointNetVLAD", "PointNetFeat", "MinkLoc3Dv2", "build_minkloc",
+           "PointNet2SAModuleMSG", "MSGLevelOutput"]

@@ -1,11 +1,14 @@
 """PointNet++ backbone of PatchAugNet and PPT-Net.
 
-Port of ``PointNet2SAModule``, ``PointNet2FPModule`` and
-``index_provenance`` of ``patchaugnet_tpu/models/backbone.py``:
+Port of ``PointNet2SAModule``, ``PointNet2SAModuleMSG``,
+``PointNet2FPModule`` and ``index_provenance`` of
+``patchaugnet_tpu/models/backbone.py``:
 
 - SA level: FPS -> gather -> EdgeConv grouping (kNN, dilation) ->
   SharedMLP -> neighbour max-pool, and in PPT-Net the grouped
   self-attention after it (``gp``);
+- multi-scale SA level: one FPS, then per scale a grouper (kNN or ball),
+  its SharedMLP and max-pool; the scales concatenated;
 - FP level: 3-NN inverse-distance interpolation + SharedMLP;
 - index provenance: every level's centre/sample indices mapped back to
   the original cloud.
@@ -60,6 +63,54 @@ class PointNet2SAModule(nn.Module):
         if self.sa is not None:
             h = self.sa(h)
         return SALevelOutput(new_xyz, center_idx, grouped.sample_idx, h)
+
+
+class MSGLevelOutput(NamedTuple):
+    new_xyz: torch.Tensor      # (B, npoint, 3)
+    center_idx: torch.Tensor   # (B, npoint) int32
+    sample_idx: torch.Tensor   # (B, npoint, sum(nsamples)) int32, the scales concatenated
+    features: torch.Tensor     # (B, npoint, sum of each scale's mlp[-1])
+
+
+class PointNet2SAModuleMSG(nn.Module):
+    """Multi-scale set abstraction (reference ``PointNet2SAModuleMSG``):
+    one FPS centre set, one grouper per scale (the ball query at
+    ``radii[i]`` where it is not None, else the dilated kNN), each scale
+    with its own SharedMLP ``mlp{i}`` and neighbour max-pool. Features
+    concatenate over channels, sample indices over the neighbour axis.
+
+    ``in_features`` is the width of the level's input features; scale i's
+    MLP sees ``3 + in_features`` channels with ``use_xyz``, else
+    ``in_features``. ``dtype`` as in :class:`PointNet2SAModule`: every
+    index is the f32 path's.
+    """
+
+    def __init__(self, npoint: int, nsamples: Sequence[int], in_features: int, mlps: Sequence[Sequence[int]],
+                 radii: Optional[Sequence[Optional[float]]] = None, knn_dilation: int = 1, use_xyz: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if len(nsamples) != len(mlps) or (radii is not None and len(radii) != len(mlps)):
+            raise ValueError(f"PointNet2SAModuleMSG: {len(nsamples)} nsamples, {len(mlps)} mlps, "
+                             f"{None if radii is None else len(radii)} radii")
+        self.npoint, self.nsamples, self.knn_dilation, self.use_xyz = npoint, tuple(nsamples), knn_dilation, use_xyz
+        self.radii = tuple(radii) if radii is not None else (None,) * len(mlps)
+        width = in_features + 3 if use_xyz else in_features
+        for i, mlp in enumerate(mlps):
+            setattr(self, f"mlp{i}", SharedMLP(width, mlp, dtype))
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor) -> MSGLevelOutput:
+        center_idx = ops.farthest_point_sample(xyz, self.npoint)
+        new_xyz = ops.gather(xyz, center_idx)
+        center_feats = ops.gather(features, center_idx)
+        feats, idx = [], []
+        for i, (nsample, radius) in enumerate(zip(self.nsamples, self.radii)):
+            grouped = ops.query_and_group_edge(
+                xyz, new_xyz, features, center_feats,
+                nsample=nsample, radius=radius, knn_dilation=self.knn_dilation, use_xyz=self.use_xyz,
+            )
+            feats.append(getattr(self, f"mlp{i}")(grouped.new_features).amax(dim=2))
+            idx.append(grouped.sample_idx)
+        return MSGLevelOutput(new_xyz, center_idx, torch.cat(idx, dim=-1), torch.cat(feats, dim=-1))
 
 
 class PointNet2FPModule(nn.Module):
