@@ -22,7 +22,6 @@ The JAX oracles compile with XLA's optimisations and the CPU fusion
 emitters off (``_jit``).
 """
 import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,7 +40,7 @@ from patchaugnet_tpu_torch.nn import extras
 TOL = 1e-5
 B, L, D = 2, 12, 16
 # public names of the JAX package that the port carries under another name,
-# each recorded in ROADMAP.md's list of renamed public names
+# each recorded in the docstring of the port's ``nn`` package
 RENAMES = {"batch_norm": "BatchNorm", "nn_angle_jax": "nn_angle"}
 
 
@@ -116,11 +115,10 @@ def _seq(seed, *shape):
 
 def test_public_names_match_the_jax_package():
     """Every public name of the JAX package's ``ops``, ``nn`` and
-    ``losses`` is in the port's ``__all__``, save the renames that
-    ROADMAP.md records."""
-    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    ``losses`` is in the port's ``__all__``, save the renames that the
+    port's ``nn`` docstring records."""
     for old, new in RENAMES.items():
-        assert re.search(rf"`{old}`[^;.]*`{new}`", roadmap), f"ROADMAP.md does not record {old} -> {new}"
+        assert re.search(rf"`{old}`[^;.]*`{new}`", nn.__doc__), f"nn.__doc__ does not record {old} -> {new}"
     for jmod, mod in ((jops, ops), (jnn, nn), (jlosses, losses)):
         want = {RENAMES.get(name, name) for name in jmod.__all__}
         missing = sorted(want - set(mod.__all__))
