@@ -27,13 +27,19 @@ Phases, each fatal on failure:
    count the top-k kernel is built for, hold the 3-NN against the
    matrix-and-K3 route bit for bit, and time kernel, plain version and a
    PyTorch yardstick; K1 also at B=100 and at every layout (threads per
-   cloud, points per thread) it is built for that holds the level;
+   cloud, points per thread) it is built for that holds the level; the
+   fused eval BatchNorm + ReLU (``ops.bn_relu``) bit-equal to its four
+   torch passes at the flagship's SA0 layer 0 and 2 and FP0 layer 0 shapes
+   at B=100 (float4 path, NaN and infinities included) and on the scalar
+   path (C=3, an input 4 bytes off alignment), timed beside them against
+   its bytes bound;
 3. serving: the full-width PatchAugNet (``configs.PATCH_AUG_NET``, seeded
    random weights) answers 4 requests of 32 clouds of 4096 points through
-   ``serving.build_forward_fn``; the launch counts must be 3 FPS and 6
-   kNN launches per forward and no other, the descriptors must be finite
-   and unit-norm, and the same model run through the plain versions on
-   the card must give the same provenance indices and descriptors within
+   ``serving.build_forward_fn``; the launch counts must be 3 FPS, 6 kNN
+   and 16 fused BatchNorm + ReLU launches per forward and no other, the
+   descriptors must be finite and unit-norm, and the same model run
+   through the plain versions on the card (``BatchNorm.relu`` as the two
+   modules) must give the same provenance indices and descriptors within
    1e-5; then descriptors/s at B=32 and B=100 and the peak device memory;
 4. EMD: ``losses.emd_loss`` forward and backward on two (4, 4096, 3)
    clouds at the reference eps=0.02, iters=1024; K6 must have launched
@@ -73,7 +79,7 @@ Phases, each fatal on failure:
    the picks that decide recall@1 and 1% recall equal to the CPU
    retrieval's on the same descriptors at every query where they are not
    an exact near-tie within the f32 rounding bound (``check_recall``),
-   the top-k dump written, K1 3 and K2 6
+   the top-k dump written, K1 3, K2 6 and 16 fused BatchNorm + ReLU
    launches per eval forward), and the eval's descriptor sweep timed 10
    times after a warm-up; then the train split's descriptor refresh (the
    model in eval mode during it and back in train mode after) and
@@ -92,13 +98,16 @@ Phases, each fatal on failure:
    FP 3-NN over 16, 64, 256 and 1024 known points) bit-equal to their plain
    versions at B=32, 100 and 18 on random and duplicated-grid clouds, the
    shapes a PatchAugNet forward does not launch timed at B=32; ``pptnet``
-   served (4 requests of 32, 4 K1 and 8 K2 launches per forward, the plain
+   served (4 requests of 32, 4 K1, 8 K2 and 25 fused BatchNorm + ReLU
+   launches per forward, the plain
    path's provenance indices and descriptors within 1e-5), then
    descriptors/s at B=32 and B=100; ``pptnet_l2_norm`` on the same weights
    unit-norm; the PPT-Net train step at its tuple batch of 18 clouds held
    against the plain kernels from a deep copy (metrics and new BatchNorm
    statistics within 1e-6), then timed; PointNetVLAD served and its train
-   step at 44 clouds timed, no kernel launched; then for each family
+   step at 44 clouds timed, no kernel launched in the step (its eval
+   forward launches the fused BatchNorm + ReLU 4 times, conv1-conv4, and
+   is held against the plain path too); then for each family
    ``train_torch.py`` on the synthetic scene for two batches (no overlap
    tables) and ``evaluate_torch.py`` on its checkpoint (recall checked
    against the CPU retrieval's as in phase 6; PointNetVLAD's eval takes
@@ -123,25 +132,27 @@ Phases, each fatal on failure:
    ``main`` at B=32 and B=100, global and local (``torch.export``, K1 and
    K2 as the registered ``pan.fps`` / ``pan.knn``; the export launches
    nothing); the B=32 artifacts loaded in a fresh process that serves 4
-   requests of 32 clouds, each call of each artifact launching K1 3 and K2
-   6 times and nothing else, with TF32 off and the port's models never
+   requests of 32 clouds, each call of each artifact launching K1 3, K2
+   6 and the fused BatchNorm + ReLU 16 times and nothing else, with TF32 off and the port's models never
    imported; its descriptors, local features and centre indices equal to
    the live model fed the same ``.pth`` (floats within 1e-6, indices
    exactly); descriptors/s of the live forward and the artifact at B=32
    and B=100 in turns, with the host's time to queue one call; each
    artifact's size, export and cold-load seconds (the fresh process starts
    once the B=32 artifacts exist and serves while this one goes on);
-   then PPT-Net's (4 K1 and 8 K2 per call), PointNetVLAD's and
-   MinkLoc3Dv2's (no launch) global artifacts at B=32, each held against
+   then PPT-Net's (4 K1, 8 K2 and 25 fused BatchNorm + ReLU per call),
+   PointNetVLAD's (4 fused BatchNorm + ReLU) and MinkLoc3Dv2's (no
+   launch) global artifacts at B=32, each held against
    its live forward; the fresh process also serves the bf16 PatchAugNet
    artifact at B=32 (``--precision bfloat16``, same ``.pth``), each call
-   launching K1 3 and K2 6 times, with cuBLAS's bf16 reductions off, its
+   launching K1 3 and K2 6 times (its BatchNorm sees bf16: no fused one), with cuBLAS's bf16 reductions off, its
    descriptors f32 and bit-equal to the live bf16 forward's;
 10. precision: mixed precision (``COMPUTE_DTYPE: bfloat16``) and ``REMAT``
    at full width. Each family (PatchAugNet, PPT-Net, PointNetVLAD,
    MinkLoc3Dv2) and its bf16 twin on the same seeded weights at B=32 and
    B=100: the bf16 descriptors f32, finite, within cosine 0.999 of the
-   f32 forward's, the same K1/K2 launches, PatchAugNet's and PPT-Net's
+   f32 forward's, the same K1/K2 launches (the f32 forward's fused
+   BatchNorm + ReLU launches besides), PatchAugNet's and PPT-Net's
    provenance indices equal, MinkLoc3Dv2's tables and maps equal;
    descriptors/s of both in turns and each one's peak memory. The
    flagship bf16 train step at 72 clouds for three steps (K1 3 and K2 6
@@ -200,7 +211,8 @@ Phases, each fatal on failure:
    encoders, angle_k 3: K2 once per ``AngleEncoder`` call; NetVLAD;
    layers self, cross, self, cross), ``TransformerEncoderLayer`` (nhead
    4, feed-forward 2048, with and without ``linear_attention_k``), and
-   ``CBAM`` and ``SEAttention`` over (32, 1024, 256);
+   ``CBAM`` (one fused BatchNorm + ReLU a call) and ``SEAttention`` over
+   (32, 1024, 256);
 13. host remainder: both host
    libraries of ``csrc/`` built with this machine's g++; FPFH native and
    numpy on a 4096-point submap cloud at the reference's defaults (radius
@@ -218,8 +230,9 @@ Phases, each fatal on failure:
    the CPU and the plain kernels (K2 once a call); ``get_overlap_indices``
    and ICP on two 4096-point clouds a known rigid transform apart (ICP
    recovers it within 1e-9), ms of each; one B=32 flagship forward under
-   ``utils.profiling.trace``, whose Chrome trace names 3 ``pan::fps`` and 6
-   ``pan::knn`` calls and as many K1 and K2 kernels on the card (the CLI
+   ``utils.profiling.trace``, whose Chrome trace names 3 ``pan::fps``, 6
+   ``pan::knn`` and 16 ``pan::bn_relu`` calls and as many kernels of each
+   on the card (the CLI
    run and the traced forward each in a fresh process where protobuf,
    TensorBoard, sklearn, pandas, PyYAML and matplotlib cannot be imported,
    and which fails on any attempt to import protobuf);
@@ -231,8 +244,9 @@ Phases, each fatal on failure:
    PPT-Net and PointNetVLAD, each trained recall@1 at least 55 and at
    least init + 5, its smallest epoch total below 0.6x the first epoch's
    (0.7x PPT-Net's and PointNetVLAD's), everything finite, the bf16
-   flagship at most 5 points below the f32 one, and each run's K1 and K2
-   launches exactly its steps', its patch centres' and its eval forwards';
+   flagship at most 5 points below the f32 one, and each run's K1, K2 and
+   fused BatchNorm + ReLU launches exactly its steps', its patch centres'
+   and its eval forwards' (none of the last in bf16);
    MinkLoc3Dv2's dense and sparse TruncatedSmoothAP runs (40 steps of 8
    clouds of 64 points) at least 85 and at least init + 20; the
    deterministic probe (``tests/torch_deterministic_probe.py``) in two
@@ -241,7 +255,8 @@ Phases, each fatal on failure:
    ``PointNet2SAModuleMSG`` at SA0's shapes (32 x 4096 points, 1024
    centres, a kNN scale of 20 at dilation 2 and a ball scale of 32 at
    radius 0.1) against the plain kernels (indices equal, features within
-   1e-5; K1 1 and K2 1 launches); seconds per run and ms per step;
+   1e-5; K1 1, K2 1 and 6 fused BatchNorm + ReLU launches); seconds per
+   run and ms per step;
 15. report: one ``{"kernels": [...]}`` line, the card's name and power
    limit as nvidia-smi gives them, and a last line
    ``{"ok": true, "device": {...}}``.
@@ -269,12 +284,17 @@ THROUGHPUT_BATCHES = ((32, 10), (100, 4))   # (batch size, timed batches)
 PEAK_BYTES_PER_S = 3.35e12                 # H100 SXM device memory (data sheet)
 PEAK_F32_OPS_PER_S = 67e12                 # H100 SXM f32 outside the tensor cores
 CARD = "unknown card"
-# launches per forward: K1 at the three SA levels, K2 at the three SA and
-# the three FP levels (the 3-NN), K3 nowhere
-FORWARD_LAUNCHES = {"fps": 3, "knn": 6}
+# launches per eval forward: K1 at the three SA levels, K2 at the three SA
+# and the three FP levels (the 3-NN), K3 nowhere, and the fused eval
+# BatchNorm + ReLU at each of the 16 SharedMLP layers (a train step and a
+# bf16 forward keep the two modules there: ``bf16_launches``)
+FORWARD_LAUNCHES = {"fps": 3, "knn": 6, "bn_relu": 16}
 PATCH_LEVELS = (1024, 128, 16)                # PatchAugNet's SA centres (configs/patch_aug_net.yaml)
 PPT_LEVELS = (1024, 256, 64, 16)              # PPT-Net's (configs/pptnet_origin.yaml)
-PPT_LAUNCHES = {"fps": 4, "knn": 8}           # a PPT-Net forward or train step: 4 SA levels, 4 FP levels
+PPT_LAUNCHES = {"fps": 4, "knn": 8, "bn_relu": 25}  # a PPT-Net eval forward: 4 SA levels, 4 FP levels,
+                                                    # 12 SA and 9 FP layers and 4 GroupSA after_norms
+PPT_STEP_LAUNCHES = {"fps": 4, "knn": 8}      # a PPT-Net train step
+PNV_LAUNCHES = {"bn_relu": 4}                 # a PointNetVLAD eval forward: conv1-conv4 (none in its step)
 # the provenance indices of each family's output held equal on the kernel and the plain path
 PROVENANCE = {"patch_aug_net": ("center_idx_origin", "sample_idx_origin"), "pptnet": ("center_idx_origin",)}
 FAMILY_BATCHES = (32, 100, 18)                # serving, the eval batch, PPT-Net's tuple batch
@@ -304,9 +324,13 @@ EVAL_REPEATS = 10                             # timed eval sweeps of the test sp
 DEPLOY_BATCHES = (32, 100)                    # the batch sizes exported in phase 9
 DEPLOY_TOL = 1e-6                             # float outputs of an artifact against the live forward
 ENQUEUE_REPS = 5                              # calls queued behind a sleep kernel per host-cost reading
-# phase 10: each family's config, its kernel launches per forward
+# the fused eval BatchNorm + ReLU timed at B=100 (rows, C): the flagship's
+# SA0 layers 0 and 2 and FP0 layer 0
+BN_RELU_CASES = (("SA0 layer 0", 100 * 1024 * 20, 32), ("SA0 layer 2", 100 * 1024 * 20, 64),
+                 ("FP0 layer 0", 100 * 4096, 256))
+# phase 10: each family's config, its kernel launches per f32 forward
 PRECISION_FAMILIES = (("patch_aug_net", "PATCH_AUG_NET", FORWARD_LAUNCHES), ("pptnet", "PPTNET_ORIGIN", PPT_LAUNCHES),
-                      ("pointnet_vlad", "POINTNET_VLAD", {}), ("minkloc3dv2", "MINKLOC3DV2", {}))
+                      ("pointnet_vlad", "POINTNET_VLAD", PNV_LAUNCHES), ("minkloc3dv2", "MINKLOC3DV2", {}))
 PRECISION_BATCHES = ((32, 5), (100, 2))       # (batch size, timed batches per turn)
 PRECISION_STEPS = 3                           # bf16 train steps checked, then timed per turn
 MIN_COSINE = 0.999                            # bf16 descriptors against f32 (the JAX suite's bound)
@@ -389,6 +413,18 @@ def price_bound(b, m, n):
 def chunked_bound(chunk):
     """K4: the chunk read, k=2 (index, value) pairs written; a compare per element."""
     return bound(chunk.numel() * 4 + chunk.shape[1] * 2 * 8, chunk.numel())
+
+
+def bn_relu_bound(rows, c):
+    """The fused eval BatchNorm + ReLU: each element read once and written
+    once (8 bytes); a subtraction, a product, a sum and a clamp each."""
+    return bound(rows * c * 8, rows * c * 4)
+
+
+def bf16_launches(launches):
+    """An eval forward's launches at a bf16 compute dtype: its BatchNorm ->
+    ReLU sites see bf16 and keep the two modules."""
+    return {k: v for k, v in launches.items() if k != "bn_relu"}
 
 
 def tail_bound(n, ids):
@@ -520,25 +556,38 @@ def read_counts(mods, records):
     return {rec.name: getattr(mods[rec.module], rec.counter) for rec in records}
 
 
+def _bn_then_relu(bn, x):
+    """``BatchNorm.relu``'s plain version: the module, then ``torch.relu``."""
+    import torch
+
+    return torch.relu(bn(x))
+
+
 @contextlib.contextmanager
 def plain_kernels(mods):
     """Route every kernel wrapper to its plain torch version (for the
     on-card reference run); restores the kernels on exit. K4's card path
     takes no chunk count, so its stand-in is the flat plain extraction, the
-    same function (phase 2 holds K4 against its two-level plain version)."""
-    swaps = [(mods["fps"], "_fps_cuda", "_farthest_point_sample_torch"),
-             (mods["knn"], "_knn_cuda", "_knn_torch"),
-             (mods["topk"], "_topk_extract_cuda", "_topk_extract_torch"),
-             (mods["topk"], "_topk_extract_price_cuda", "_topk_extract_price_torch"),
-             (mods["topk"], "_topk_extract_chunked_cuda", "_topk_extract_torch")]
-    saved = [getattr(mod, kernel) for mod, kernel, _ in swaps]
-    for mod, kernel, plain in swaps:
-        setattr(mod, kernel, getattr(mod, plain))
+    same function (phase 2 holds K4 against its two-level plain version).
+    The fused eval BatchNorm + ReLU is registered with the dispatcher
+    directly, so ``BatchNorm.relu`` itself takes the two modules instead."""
+    from patchaugnet_tpu_torch.nn import BatchNorm
+
+    fps, knn, topk = mods["fps"], mods["knn"], mods["topk"]
+    swaps = [(BatchNorm, "relu", _bn_then_relu),
+             (fps, "_fps_cuda", fps._farthest_point_sample_torch),
+             (knn, "_knn_cuda", knn._knn_torch),
+             (topk, "_topk_extract_cuda", topk._topk_extract_torch),
+             (topk, "_topk_extract_price_cuda", topk._topk_extract_price_torch),
+             (topk, "_topk_extract_chunked_cuda", topk._topk_extract_torch)]
+    saved = [getattr(owner, name) for owner, name, _ in swaps]
+    for owner, name, plain in swaps:
+        setattr(owner, name, plain)
     try:
         yield
     finally:
-        for (mod, kernel, _), fn in zip(swaps, saved):
-            setattr(mod, kernel, fn)
+        for (owner, name, _), fn in zip(swaps, saved):
+            setattr(owner, name, fn)
 
 
 def phase_build(cuda):
@@ -645,7 +694,49 @@ def phase_kernels(torch, ops, mods, dev):
                                                      mods["topk"]._topk_extract_torch(tied, k))):
             raise AssertionError(f"topk: tied matrix differs from the plain version at k={k}")
     say("K3 topk_extract: tied matrix (values in {0,1,2,3}) matches the plain version at k=3 and k=20")
-    return [k1, k2, k3]
+    return [k1, k2, k3, check_bn_relu(torch, ops, mods["norm"], dev)]
+
+
+def check_bn_relu(torch, ops, norm, dev):
+    """The fused eval BatchNorm + ReLU (``ops.bn_relu``) bit-equal to its
+    plain version, the four torch passes, at ``BN_RELU_CASES`` (float4
+    path) and on the scalar path (a C of 3, an input 4 bytes off
+    alignment), NaN and infinities passed through; timed beside the plain
+    version at ``BN_RELU_CASES``. Returns its record."""
+    rec = KernelRecord("bn_relu", "norm", "patchaugnet_tpu_torch/csrc/bn_relu.cu",
+                       "patchaugnet_tpu_torch/nn/core.py (eval BatchNorm, then torch.relu)")
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def operands(rows, c):
+        x = torch.randn(rows, c, generator=gen, device=dev) * 3
+        x.view(-1)[:5] = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0], device=dev)
+        mean, bias = (torch.randn(c, generator=gen, device=dev) * 0.1 for _ in range(2))
+        return x, mean, torch.rand(c, generator=gen, device=dev) + 0.5, bias
+
+    def check(what, x, *vectors):
+        got, want = ops.bn_relu(x, *vectors), norm._bn_relu_plain(x, *vectors)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"bn_relu {what}: the kernel differs from the four passes")
+
+    x, mean, mul, bias = operands(1001, 3)
+    check("(1001, 3)", x, mean, mul, bias)
+    flat = torch.randn(1 + 1000 * 64, generator=gen, device=dev)
+    _, mean, mul, bias = operands(1, 64)
+    check("(1000, 64) 4 bytes off alignment", flat[1:].view(1000, 64), mean, mul, bias)
+    for label, rows, c in BN_RELU_CASES:
+        x, mean, mul, bias = operands(rows, c)
+        check(f"{label} ({rows}, {c})", x, mean, mul, bias)
+        ms = time_ms(torch, lambda: ops.bn_relu(x, mean, mul, bias), 20)
+        plain = time_ms(torch, lambda: norm._bn_relu_plain(x, mean, mul, bias), 5)
+        b_ms, b_by = bn_relu_bound(rows, c)
+        rec.cases.append((ms, plain, None, b_ms, b_by))
+        measured(f"pan::bn_relu {label} (rows, C)=({rows},{c}), B=100",
+                 f"kernel {ms:.4f} ms, the four passes {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                 f"{b_ms / ms:.1%} of it; bit-equal (NaN and infinities included)")
+        del x
+    say("pan::bn_relu: bit-equal to the four passes on the scalar path (C=3; an input 4 bytes off alignment)")
+    return rec
 
 
 def check_fps_layouts(torch, ops, fps, x, gen):
@@ -793,9 +884,10 @@ def phase_emd_kernels(torch, ops, mods, dev):
 
 
 def check_provenance(torch, ref, plain, family, what):
-    """The provenance indices of ``family``'s outputs (``PROVENANCE``)
-    equal on the kernel path (``ref``) and the plain path, level by level."""
-    for name in PROVENANCE[family]:
+    """The provenance indices of ``family``'s outputs (``PROVENANCE``; a
+    family without any, none) equal on the kernel path (``ref``) and the
+    plain path, level by level."""
+    for name in PROVENANCE.get(family, ()):
         for level, (a, b) in enumerate(zip(getattr(ref, name), getattr(plain, name), strict=True)):
             if not torch.equal(a, b):
                 raise AssertionError(f"{what}: {name}[{level}] of the kernel path differs from the plain path")
@@ -818,11 +910,14 @@ def check_against_plain(torch, mods, records, model, clouds, family, what):
                     raise AssertionError(f"{what}: the plain run launched a kernel")
     finally:
         model.train(training)
+    from patchaugnet_tpu_torch import serving
+
     check_provenance(torch, ref, plain, family, what)
-    desc_err = (ref.global_desc - plain.global_desc).abs().max().item()
+    ref, plain = serving.global_desc(ref), serving.global_desc(plain)
+    desc_err = (ref - plain).abs().max().item()
     if desc_err > 1e-5:
         raise AssertionError(f"{what}: descriptors differ from the plain path's by {desc_err}")
-    return ref.global_desc, desc_err
+    return ref, desc_err
 
 
 def phase_serving(torch, mods, records, dev):
@@ -1602,12 +1697,12 @@ def time_ppt_kernels(torch, ops, mods, dev):
                  f"(+{pair_ms:.4f} ms to form it), bound {b_ms:.4f} ms ({b_by}), indices and d2 equal")
 
 
-def cli_family(torch, mods, records, family, config, launches):
+def cli_family(torch, mods, records, family, config, launches, forward_launches):
     """``train_torch.py`` for FAMILY_CLI_BATCHES batches of ``config`` on the
     synthetic scene, on the card (``launches`` per batch, no overlap tables:
     the patch branch is PatchAugNet's), then ``evaluate_torch.py`` on its
     checkpoint: recall checked against the CPU retrieval's on the same
-    descriptors (``check_recall``), ``launches`` per eval forward; the eval's forward
+    descriptors (``check_recall``), ``forward_launches`` per eval forward; the eval's forward
     choice takes the global forward for a model without local
     descriptors. Returns the train and eval launch counts."""
     import tempfile
@@ -1644,7 +1739,7 @@ def cli_family(torch, mods, records, family, config, launches):
         eval_counts = read_counts(mods, records)
         test_ds = result["test_ds"]
         forwards = -(-len(test_ds) // evaluate_torch.get_args([]).batch_size)
-        check_launches(eval_counts, {k: v * forwards for k, v in launches.items()}, f"CLI {family} eval")
+        check_launches(eval_counts, {k: v * forwards for k, v in forward_launches.items()}, f"CLI {family} eval")
         descs = test_ds.scene.global_descs
         if descs.shape != (len(test_ds), 256) or not np.isfinite(descs).all():
             raise AssertionError(f"CLI {family} eval: descriptors {descs.shape} not finite ({len(test_ds)}, 256)")
@@ -1703,19 +1798,21 @@ def phase_families(torch, ops, mods, records, dev):
     del ppt, normed
     paths.append(train_model(torch, mods, records, dev, cfg,
                              seeded_init_(get_model("pptnet", cfg), torch.Generator().manual_seed(13)),
-                             "pptnet", PPT_LAUNCHES, seed=12)[0])
+                             "pptnet", PPT_STEP_LAUNCHES, seed=12)[0])
 
     cfg = configs.POINTNET_VLAD
     pnv = seeded_init_(get_model("pointnet_vlad", cfg), torch.Generator().manual_seed(14))
-    paths.append(serve(torch, mods, records, dev, pnv, "pointnet_vlad", {}, seed=11)[0])
+    paths.append(serve(torch, mods, records, dev, pnv, "pointnet_vlad", PNV_LAUNCHES, seed=11)[0])
     del pnv
     paths.append(train_model(torch, mods, records, dev, cfg,
                              seeded_init_(get_model("pointnet_vlad", cfg), torch.Generator().manual_seed(15)),
                              "pointnet_vlad", {}, seed=12)[0])
 
-    for family, config, launches in (("pptnet", "configs/pptnet_origin.yaml", PPT_LAUNCHES),
-                                     ("pointnet_vlad", "configs/pointnet_vlad.yaml", {})):
-        paths.extend(cli_family(torch, mods, records, family, os.path.join(ROOT, config), launches))
+    for family, config, launches, forward_launches in (
+            ("pptnet", "configs/pptnet_origin.yaml", PPT_STEP_LAUNCHES, PPT_LAUNCHES),
+            ("pointnet_vlad", "configs/pointnet_vlad.yaml", {}, PNV_LAUNCHES)):
+        paths.extend(cli_family(torch, mods, records, family, os.path.join(ROOT, config), launches,
+                                forward_launches))
     return paths
 
 
@@ -1910,7 +2007,8 @@ def phase_minkloc(torch, mods, records, dev):
     check_minkloc_dense(torch, model, clouds[:MINK_DENSE_CLOUDS], dev)
     del model, descs
     paths.append(minkloc_train(torch, mods, records, dev, cfg))
-    paths.extend(cli_family(torch, mods, records, "minkloc3dv2", os.path.join(ROOT, "configs/minkloc3dv2.yaml"), {}))
+    paths.extend(cli_family(torch, mods, records, "minkloc3dv2", os.path.join(ROOT, "configs/minkloc3dv2.yaml"), {},
+                            {}))
     say(f"phase 8 (minkloc3dv2): {time.perf_counter() - t_phase:.1f} s")
     return paths
 
@@ -1929,7 +2027,8 @@ sys.path.insert(0, root)
 import torch
 t0 = time.perf_counter()
 from patchaugnet_tpu_torch import serving
-fps, knn, topk = (importlib.import_module(f"patchaugnet_tpu_torch.ops.{name}") for name in ("fps", "knn", "topk"))
+fps, knn, topk, norm = (importlib.import_module(f"patchaugnet_tpu_torch.ops.{name}")
+                        for name in ("fps", "knn", "topk", "norm"))
 fwd, meta = serving.load_artifact(os.path.join(out, f"patch_aug_net_desc_b{batch}.pt2"))
 t1 = time.perf_counter()
 lfwd, lmeta = serving.load_artifact(os.path.join(out, f"patch_aug_net_local_b{batch}.pt2"))
@@ -1937,7 +2036,7 @@ t2 = time.perf_counter()
 bfwd, bmeta = serving.load_artifact(os.path.join(out, "bf16", f"patch_aug_net_desc_b{batch}.pt2"))
 requests = torch.load(os.path.join(out, "requests.pt")).cuda()
 counters = ((fps, "launches"), (knn, "launches"), (topk, "launches"), (topk, "price_launches"),
-            (topk, "chunked_launches"))
+            (topk, "chunked_launches"), (norm, "launches"))
 def counts():
     return {f"{m.__name__.rsplit('.', 1)[1]}.{c}": getattr(m, c) for m, c in counters}
 def reset():
@@ -2030,15 +2129,16 @@ def export_cli(out, *args):
 
 
 def deploy_families(torch, mods, records, dev, out, clouds):
-    """PPT-Net's (4 K1 and 8 K2 per call), PointNetVLAD's and MinkLoc3Dv2's
-    (no launch) global artifacts at B=32 from their seeded initialisation,
+    """PPT-Net's (4 K1, 8 K2 and 25 fused BatchNorm + ReLU per call),
+    PointNetVLAD's (4 fused BatchNorm + ReLU) and MinkLoc3Dv2's (no launch)
+    global artifacts at B=32 from their seeded initialisation,
     each held against the live forward on ``clouds``. Returns the launch
     counts of the artifacts' calls."""
     import evaluate_torch
     from patchaugnet_tpu_torch import configs, serving
 
     paths = []
-    for family, launches in (("pptnet", PPT_LAUNCHES), ("pointnet_vlad", {}), ("minkloc3dv2", {})):
+    for family, launches in (("pptnet", PPT_LAUNCHES), ("pointnet_vlad", PNV_LAUNCHES), ("minkloc3dv2", {})):
         (path,), export_s = export_cli(out, "--model_type", family, "--batch_sizes", str(B))
         cfg = dict(configs.KNOWN_CONFIGS[os.path.basename(evaluate_torch.CONFIG_TABLE[family])], model_type=family)
         model = evaluate_torch.load_state(family, cfg, None, dev).model
@@ -2109,9 +2209,12 @@ def phase_deploy(torch, mods, records, dev):
                                  f"{report['bf16_reduction']}")
         if report["meta"][2]["precision"] != "bfloat16":
             raise AssertionError(f"the bf16 artifact's sidecar says precision {report['meta'][2]['precision']}")
-        want = {f"{k}.launches": v for k, v in FORWARD_LAUNCHES.items()}
+        per_call = {flavour: {f"{rec.module}.{rec.counter}": n for rec in records if (n := launches.get(rec.name))}
+                    for flavour, launches in (("desc", FORWARD_LAUNCHES), ("local", FORWARD_LAUNCHES),
+                                              ("bf16", bf16_launches(FORWARD_LAUNCHES)))}
         for i, call in enumerate(report["calls"]):
             for flavour, counts in call.items():
+                want = per_call[flavour]
                 if {k: v for k, v in counts.items() if v} != want:
                     raise AssertionError(f"artifact {flavour} request {i}: launches {counts}, expected {want}")
         deployed.append({rec.name: sum(counts.get(f"{rec.module}.{rec.counter}", 0)
@@ -2220,7 +2323,8 @@ def precision_serving(torch, mods, records, dev):
                     outs[name] = model(x)
                 torch.cuda.synchronize()
                 counts[name] = read_counts(mods, records)
-                check_launches(counts[name], launches, f"{family} {name} forward B={batch}")
+                want = launches if name == "f32" else bf16_launches(launches)
+                check_launches(counts[name], want, f"{family} {name} forward B={batch}")
                 paths.append(counts[name])
             d32, d16 = (serving.global_desc(outs[k]) for k in ("f32", "bf16"))
             if d16.dtype != torch.float32 or d16.shape != d32.shape or not torch.isfinite(d16).all():
@@ -2850,15 +2954,16 @@ class ExtrasRun:
         self.torch, self.mods, self.records, self.phase = torch, mods, records, phase
         self.paths, self.lines = [], []
 
-    def piece(self, name, fn, args, tol=0.0, knn=0):
-        """``fn(*args)`` on the card, K2 launched ``knn`` times and nothing
-        else; equal (``tol`` 0) or within ``tol`` of ``fn`` on the CPU on the
-        same inputs and, where K2 is on the path, of the card run under
+    def piece(self, name, fn, args, tol=0.0, knn=0, bn_relu=0):
+        """``fn(*args)`` on the card, K2 launched ``knn`` times, the fused
+        eval BatchNorm + ReLU ``bn_relu`` times, and nothing else; equal
+        (``tol`` 0) or within ``tol`` of ``fn`` on the CPU on the same inputs
+        and, where a kernel is on the path, of the card run under
         ``plain_kernels``. Returns the card's result."""
         torch = self.torch
         with torch.no_grad():
             got, counts, _ = counted(torch, self.mods, self.records, lambda: fn(*args))
-        check_launches(counts, {"knn": knn}, f"phase {self.phase} {name}")
+        check_launches(counts, {"knn": knn, "bn_relu": bn_relu}, f"phase {self.phase} {name}")
         self.paths.append(counts)
         with torch.no_grad():
             cpu = fn(*to_cpu(args))
@@ -2866,7 +2971,7 @@ class ExtrasRun:
         if err > tol:
             raise AssertionError(f"phase {self.phase} {name}: card against CPU max abs err {err} (allowed {tol})")
         text = f"card against CPU {'equal' if err == 0 else f'max abs err {err:.3g}'}"
-        if knn:
+        if knn or bn_relu:
             with torch.no_grad(), plain_kernels(self.mods):
                 before = read_counts(self.mods, self.records)
                 ref = fn(*args)
@@ -2878,7 +2983,8 @@ class ExtrasRun:
             text += f", against the plain kernels {'equal' if perr == 0 else f'{perr:.3g}'}"
         with torch.no_grad():
             ms = time_ms(torch, lambda: fn(*args), EXTRAS_REPS)
-        self.lines.append(f"{name} {ms:.4f} ms, K2 {counts['knn']}, {text}")
+        fused = f", bn_relu {bn_relu}" if bn_relu else ""
+        self.lines.append(f"{name} {ms:.4f} ms, K2 {counts['knn']}{fused}, {text}")
         return got
 
     def grad_piece(self, name, fn, floats, others, stats_keys=()):
@@ -3069,7 +3175,7 @@ def extras_blocks(torch, nn, run, dev):
         run.piece(f"TransformerEncoderLayer (nhead 4, ff 2048, linear_attention_k {k})", layer, (x, pos),
                   tol=EXTRAS_TOL)
     wide = torch.rand(B, CBAM_L, EXTRAS_D, generator=gen, device=dev)
-    run.piece("CBAM", on_both(nn.CBAM(EXTRAS_D), 76), (wide,), tol=EXTRAS_TOL)
+    run.piece("CBAM", on_both(nn.CBAM(EXTRAS_D), 76), (wide,), tol=EXTRAS_TOL, bn_relu=1)
     run.piece("SEAttention", on_both(nn.SEAttention(EXTRAS_D), 77), (wide,), tol=EXTRAS_TOL)
     measured(f"phase 12 (nn extras): B={B}, {EXTRAS_L} positions, d_model {EXTRAS_D}; CBAM and SE over "
              f"({B}, {CBAM_L}, {EXTRAS_D})", "; ".join(run.lines))
@@ -3330,7 +3436,8 @@ def host_geometry(torch, np, run, dev):
 
 def host_trace(torch, mods, records, dev, root):
     """One B=32 flagship forward under ``utils.profiling.trace``: the Chrome
-    trace names 3 K1 and 6 K2 launches, on the host and on the card."""
+    trace names 3 K1, 6 K2 and 16 fused BatchNorm + ReLU launches, on the
+    host and on the card."""
     from patchaugnet_tpu_torch import configs, serving
     from patchaugnet_tpu_torch.models import get_model
     from patchaugnet_tpu_torch.nn import seeded_init_
@@ -3350,20 +3457,22 @@ def host_trace(torch, mods, records, dev, root):
     check_launches(counts, FORWARD_LAUNCHES, "phase 13 traced forward")
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
-    host = {op: sum(e.get("name") == f"pan::{op}" for e in events) for op in ("fps", "knn")}
+    host = {op: sum(e.get("name") == f"pan::{op}" for e in events) for op in FORWARD_LAUNCHES}
     # the kernels' names, demangled or not (``fps_registers<512, 8>``, ``...13fps_registersILi512...``)
     card = {op: sum(e.get("cat") == "kernel" and bool(re.search(pattern, e.get("name", ""))) for e in events)
-            for op, pattern in (("fps", r"fps_(registers|scratch)"), ("knn", r"knn_kernel"))}
+            for op, pattern in (("fps", r"fps_(registers|scratch)"), ("knn", r"knn_kernel"),
+                                ("bn_relu", r"bn_relu_kernel"))}
     if host != FORWARD_LAUNCHES or card != FORWARD_LAUNCHES:
         named = [(e.get("cat"), e.get("name", "")[:120]) for e in events
-                 if "fps" in e.get("name", "").lower() or "knn" in e.get("name", "").lower()]
+                 if any(op in e.get("name", "").lower() for op in FORWARD_LAUNCHES)]
         raise AssertionError(f"phase 13 trace: the host ops {host} and the card's kernels {card} (want "
-                             f"{FORWARD_LAUNCHES} of each); events naming fps or knn: {named}")
+                             f"{FORWARD_LAUNCHES} of each); events naming them: {named}")
     kernels = sum(e.get("cat") == "kernel" for e in events)
     measured(f"phase 13 utils.profiling.trace over one B={B} flagship forward",
              f"{os.path.getsize(prof.trace_path) / 2**20:.2f} MiB Chrome trace, {len(events)} events, {kernels} "
-             f"kernels on the card; pan::fps {host['fps']} and pan::knn {host['knn']} on the host, K1 {card['fps']} "
-             f"and K2 {card['knn']} on the card; {traced_ms:.1f} ms traced (the export included)")
+             f"kernels on the card; pan::fps {host['fps']}, pan::knn {host['knn']} and pan::bn_relu "
+             f"{host['bn_relu']} on the host, K1 {card['fps']}, K2 {card['knn']} and bn_relu {card['bn_relu']} on "
+             f"the card; {traced_ms:.1f} ms traced (the export included)")
     return counts
 
 
@@ -3416,8 +3525,8 @@ import numpy as np
 import torch
 import chip_smoke as cs
 cs.CARD = cs.card_line()
-mods = {n: importlib.import_module(f"patchaugnet_tpu_torch.ops.{n}") for n in ("fps", "knn")}
-records = [cs.KernelRecord(n, n, "", "") for n in mods]
+mods = {n: importlib.import_module(f"patchaugnet_tpu_torch.ops.{n}") for n in ("fps", "knn", "norm")}
+records = [cs.KernelRecord(n, m, "", "") for n, m in (("fps", "fps"), ("knn", "knn"), ("bn_relu", "norm"))]
 with cs.ImportWatch("google.protobuf") as watch:
     if what == "cli":
         counts, _ = cs.host_cli(torch, np, mods, records, scratch)
@@ -3484,7 +3593,7 @@ QUALITY_LOSS_SHARE = {"patch_aug_net": 0.6, "pptnet": 0.7, "pointnet_vlad": 0.7}
 QUALITY_BF16_BAND = 5.0
 # (launches per train step, per patch batch's centres, per eval forward)
 QUALITY_LAUNCHES = {"patch_aug_net": (STEP_LAUNCHES, CENTER_LAUNCHES, FORWARD_LAUNCHES),
-                    "pptnet": (PPT_LAUNCHES, {}, PPT_LAUNCHES), "pointnet_vlad": ({}, {}, {})}
+                    "pptnet": (PPT_STEP_LAUNCHES, {}, PPT_LAUNCHES), "pointnet_vlad": ({}, {}, PNV_LAUNCHES)}
 # MinkLoc3Dv2's SmoothAP runs (tests/test_minkloc.py:231-282, dense;
 # tests/test_minkloc_sparse.py:518-567, sparse at step 0.1): 2 x 16
 # synthetic submaps of 64 points, 40 steps of 8 clouds, AdamW at 1e-3
@@ -3510,7 +3619,7 @@ PROBE_BF16_BAND = 5.0
 MSG_NPOINT, MSG_NSAMPLES, MSG_RADII, MSG_DILATION = 1024, (20, 32), (None, 0.1), 2
 MSG_WIDTHS = (32, 32, 64)
 MSG_TOL = 1e-5
-MSG_LAUNCHES = {"fps": 1, "knn": 1}
+MSG_LAUNCHES = {"fps": 1, "knn": 1, "bn_relu": 6}   # 2 scales of 3 SharedMLP layers
 
 
 def quality_family(torch, mods, records, dev, family, precision):
@@ -3523,6 +3632,8 @@ def quality_family(torch, mods, records, dev, family, precision):
     torch.cuda.synchronize()
     counts = read_counts(mods, records)
     per_step, per_centres, per_forward = QUALITY_LAUNCHES[family]
+    if precision == "bfloat16":
+        per_forward = bf16_launches(per_forward)
     want = {k: result["steps"] * per_step.get(k, 0) + result["patch_batches"] * per_centres.get(k, 0)
             + result["eval_batches"] * per_forward.get(k, 0) for k in set(per_step) | set(per_forward)}
     check_launches(counts, want, f"phase 14 {family} {precision} quality run ({result['steps']} steps, "
@@ -3691,7 +3802,7 @@ def main():
     from patchaugnet_tpu_torch.ops import cuda
 
     mods = {name: importlib.import_module(f"patchaugnet_tpu_torch.ops.{name}")
-            for name in ("fps", "knn", "topk", "emd", "cuda")}
+            for name in ("fps", "knn", "topk", "emd", "norm", "cuda")}
     smi = card_line()
     CARD = smi
     say(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "

@@ -7,7 +7,7 @@ The port's counterpart of ``export_serving.py``. It loads weights as
 without ``--weight`` the seeded initialisation), captures the eval forward
 with ``torch.export`` at each batch size (``serving.export_descriptor_fn``),
 and writes one artifact per batch size and flavour, each with a JSON
-sidecar. A serving host then needs torch, the port's two registered
+sidecar. A serving host then needs torch, the port's three registered
 kernels and the file:
 
     fwd, meta = patchaugnet_tpu_torch.serving.load_artifact("patch_aug_net_desc_b32.pt2")

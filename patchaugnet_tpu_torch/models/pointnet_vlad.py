@@ -58,9 +58,8 @@ class PointNetFeat(nn.Module):
             raise ValueError("a point-sharded PointNetFeat returns per-point features (max_pool=False)")
         x = torch.bmm(x, self.stn(x, group))
         for name, _, relu in _CONVS:
-            x = getattr(self, f"{name}_bn")(getattr(self, name)(x))
-            if relu:
-                x = torch.relu(x)
+            bn, h = getattr(self, f"{name}_bn"), getattr(self, name)(x)
+            x = bn.relu(h) if relu else bn(h)
             if name == "conv2" and self.feature_trans is not None:
                 x = torch.bmm(x.to(torch.float32), self.feature_trans(x, group))
         return x.amax(dim=1) if self.max_pool else x

@@ -93,7 +93,7 @@ class GroupedDense(nn.Module):
 
 
 def _tied_attention(x: torch.Tensor, xq: torch.Tensor, xv: torch.Tensor, trans_conv: nn.Module,
-                    after_norm: nn.Module) -> torch.Tensor:
+                    after_norm: BatchNorm) -> torch.Tensor:
     """The reference's attention with tied Q/K: energy ``xq xq^T`` (summed
     over every channel, so over the groups too), a softmax over the last
     axis, then a division by ``1e-9 +`` the sum over the query axis;
@@ -105,7 +105,7 @@ def _tied_attention(x: torch.Tensor, xq: torch.Tensor, xv: torch.Tensor, trans_c
     attn = torch.softmax(energy, dim=-1)
     attn = (attn / (1e-9 + attn.sum(dim=1, keepdim=True))).to(xv.dtype)
     x_r = torch.bmm(attn.transpose(1, 2), xv)               # x_r[j] = sum_i attn[i, j] v[i]
-    return x + torch.relu(after_norm(trans_conv(x - x_r)))
+    return x + after_norm.relu(trans_conv(x - x_r))
 
 
 class GroupSA(nn.Module):

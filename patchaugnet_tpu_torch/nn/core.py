@@ -13,6 +13,12 @@ returns that dtype (flax ``nn.Dense(dtype=)``); :class:`BatchNorm` reduces
 its statistics and normalises in f32 whatever its input, and returns the
 input's dtype (flax ``BatchNorm(dtype=)``). Parameters and statistics stay
 f32. With no compute dtype every cast is a no-op.
+
+Where an eval BatchNorm feeds a ReLU, the sites call
+:meth:`BatchNorm.relu`, which runs both in one pass
+(``ops.norm.bn_relu``) when nothing needs the separate passes: eval mode,
+no autograd recorded, an f32 contiguous input. :data:`bn_relu_counts`
+counts, per eval call, which path it took.
 """
 from __future__ import annotations
 
@@ -23,12 +29,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.norm import bn_relu
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9   # flax's: running = 0.9 * running + 0.1 * batch (torch's momentum 0.1)
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
 _frozen_running_stats = 0   # > 0 inside frozen_running_stats()
 _stats_group: Optional[Tuple[Any, int]] = None   # (process group, its size) inside batch_stats_group()
+# eval-mode BatchNorm.relu calls so far, by path: one pass (pan.bn_relu) or the BatchNorm then torch.relu
+bn_relu_counts = {"fused": 0, "unfused": 0}
 
 
 def compute_dtype(param: Mapping[str, Any]) -> Optional[torch.dtype]:
@@ -163,6 +173,24 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         return ((xf - mean) * mul + self.bias).to(x.dtype)
 
+    def relu(self, x: torch.Tensor) -> torch.Tensor:
+        """``torch.relu(self(x))``. In eval mode, where no autograd is
+        recorded (neither ``x`` nor the scale and shift need a gradient
+        while it is enabled) and ``x`` is f32 and contiguous, in one pass
+        (``ops.norm.bn_relu``, the same bits); otherwise (train mode, a
+        lower-precision input, a forward that needs gradients) as the two
+        modules. Eval calls are counted in :data:`bn_relu_counts`."""
+        if self.training:
+            return torch.relu(self(x))
+        if (x.dtype == torch.float32 and x.is_contiguous()
+                and not (torch.is_grad_enabled()
+                         and (x.requires_grad or self.weight.requires_grad or self.bias.requires_grad))):
+            bn_relu_counts["fused"] += 1
+            mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+            return bn_relu(x, self.running_mean, mul, self.bias)
+        bn_relu_counts["unfused"] += 1
+        return torch.relu(self(x))
+
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """``running = momentum * running + (1 - momentum) * batch``, in
@@ -188,7 +216,7 @@ class SharedMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.depth):
-            x = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"layer{i}")(x)))
+            x = getattr(self, f"bn{i}").relu(getattr(self, f"layer{i}")(x))
         return x
 
 
@@ -213,9 +241,9 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, act in enumerate(self.acts):
             x = getattr(self, f"fc{i}")(x)
-            if hasattr(self, f"bn{i}"):
-                x = getattr(self, f"bn{i}")(x)
-            if act:
+            if hasattr(self, f"bn{i}"):      # a BatchNorm only before an activation
+                x = getattr(self, f"bn{i}").relu(x)
+            elif act:
                 x = torch.relu(x)
         return x
 

@@ -99,7 +99,7 @@ class SpatialAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, return_attn: bool = False):
         stats = torch.stack([x.amax(dim=-1), x.mean(dim=-1)], dim=-1)   # (B, L, 2)
-        att = torch.relu(self.bn(self.conv1(stats)))                    # (B, L, 1)
+        att = self.bn.relu(self.conv1(stats))                           # (B, L, 1)
         att = torch.softmax(att[..., 0], dim=-1)[..., None]
         out = att * x
         return (out, att) if return_attn else out

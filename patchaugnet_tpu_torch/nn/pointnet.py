@@ -33,8 +33,8 @@ class PointNetDecoder(nn.Module):
         self.fc3 = nn.Linear(1024, num_points * output_channels)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(self.bn1(self.fc1(z)))
-        h = torch.relu(self.bn2(self.fc2(h)))
+        h = self.bn1.relu(self.fc1(z))
+        h = self.bn2.relu(self.fc2(h))
         h = torch.tanh(self.fc3(h))
         return h.reshape(-1, self.num_points, self.output_channels)
 
@@ -44,7 +44,7 @@ def _dense_bn_relu(module: nn.Module, name: str, x: torch.Tensor) -> torch.Tenso
     has none of that name."""
     h = getattr(module, name)(x)
     bn = getattr(module, f"{name}_bn", None)
-    return torch.relu(bn(h) if bn is not None else h)
+    return bn.relu(h) if bn is not None else torch.relu(h)
 
 
 class STN3D(nn.Module):

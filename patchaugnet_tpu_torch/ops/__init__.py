@@ -3,8 +3,9 @@
 Port of ``patchaugnet_tpu.ops``, all of its public names: plain torch ops,
 with hand-written CUDA kernels (``csrc/``) for farthest point sampling
 (``fps``), kNN (``knn``, also under ``knn_exclude_self``, the 3-NN and
-the kNN groupings) and top-k extraction, plain and price-fused (``topk``,
-used by the auction EMD in ``emd``). Each kernel wrapper launches its
+the kNN groupings), top-k extraction, plain and price-fused (``topk``,
+used by the auction EMD in ``emd``), and eval BatchNorm with ReLU in one
+pass (``norm``, a kernel of the port alone). Each kernel wrapper launches its
 kernel for a CUDA tensor and runs its plain torch version for a CPU
 tensor. The ball query and the label statistics are torch ops, as they
 are XLA in the JAX package.
@@ -13,6 +14,7 @@ from .pairwise import pairwise_sqdist, self_sqdist
 from .fps import farthest_point_sample
 from .knn import ball_query, dilated_knn, knn, knn_exclude_self
 from .topk import topk_extract, topk_extract_chunked, topk_extract_pair, topk_extract_price
+from .norm import bn_relu
 from .grouping import (
     GroupedEdgeFeatures,
     gather,
@@ -65,4 +67,5 @@ __all__ = [
     "labelstat_and_ballquery",
     "featuredistribute",
     "featuregather",
+    "bn_relu",
 ]

@@ -6,8 +6,10 @@ shared library with a plain C interface, at first use, into
 file name carries a hash of its sources and of the nvcc flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
 :func:`build` starts one nvcc for each library that is missing, all at
-once, and waits for all of them. No source includes PyTorch's headers:
-an nvcc run takes seconds, where a PyTorch extension build takes minutes.
+once, and waits for all of them; a library loaded before it is built is
+built at that point, with the other missing ones of :data:`FORWARD`. No
+source includes PyTorch's headers: an nvcc run takes seconds, where a
+PyTorch extension build takes minutes.
 
 Every C entry point takes its device pointers as ``void*``, its sizes as
 ``int``/``long long`` and PyTorch's current stream last, enqueues its
@@ -48,7 +50,14 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
     "topk": {"pan_topk_extract": [_P, _P, _P, _L, _I, _I, _I, _P],
              "pan_topk_extract_price": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
              "pan_topk_extract_price_rows": [_P, _P, _P, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P]},
+    "bn_relu": {"pan_bn_relu": [_P, _P, _P, _P, _P, _L, _I, _I, _P]},
 }
+
+# the libraries an eval forward or a train step loads: the first one missing
+# builds every missing one of them, in one batch of nvcc processes (about
+# 5 s on an H100 host). topk stays out: its nvcc alone takes about 50 s,
+# and neither path loads it (the auction EMD does).
+FORWARD = ("fps", "knn", "bn_relu")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -118,7 +127,7 @@ def _library(name: str) -> ctypes.CDLL:
         if lib is None:
             path = _library_path(name)
             if not path.exists():
-                build([name])
+                build(FORWARD if name in FORWARD else [name])
             lib = ctypes.CDLL(str(path))
             for fn_name, argtypes in LIBRARIES[name].items():
                 fn = getattr(lib, fn_name)

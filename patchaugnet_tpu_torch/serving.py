@@ -16,11 +16,12 @@ The export half of ``patchaugnet_tpu/serving.py``: :func:`export_descriptor_fn`
 captures one of those forwards with ``torch.export`` at a fixed batch
 size, :func:`save_artifact` writes the program with its weights and a
 JSON sidecar, and :func:`load_artifact` serves it. A serving host needs
-torch, the port's two registered kernels (``torch.ops.pan.fps`` and
-``torch.ops.pan.knn``, ``ops/library.py``) and the file: loading imports
-``ops`` and none of ``models``, ``nn``, ``train`` or ``data``. The program
-holds one ``pan.fps`` / ``pan.knn`` node per kernel launch, which runs the
-CUDA kernel on the card and the plain version on the CPU.
+torch, the port's three registered kernels (``torch.ops.pan.fps``,
+``torch.ops.pan.knn`` and ``torch.ops.pan.bn_relu``, ``ops/library.py``)
+and the file: loading imports ``ops`` and none of ``models``, ``nn``,
+``train`` or ``data``. The program holds one ``pan.fps`` / ``pan.knn`` /
+``pan.bn_relu`` node per kernel launch, which runs the CUDA kernel on the
+card and the plain version on the CPU.
 
 Device note: the program's weights and the tensors it makes lie on the
 device it was exported on, and the kernels' launch shapes are those
@@ -230,7 +231,7 @@ def load_artifact(path: str) -> Tuple[Callable, Dict[str, Any]]:
     (:func:`full_f32_products`): the flags are not part of the program, and
     a fresh process would otherwise form the products in TF32, and reduce
     a bf16 artifact's products in bf16."""
-    from . import ops  # noqa: F401  (registers torch.ops.pan.fps and torch.ops.pan.knn)
+    from . import ops  # noqa: F401  (registers the torch.ops.pan operators)
 
     full_f32_products()
     program = torch.export.load(path)

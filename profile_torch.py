@@ -4,6 +4,7 @@ its auction EMD, goes on the card.
 
     python3 profile_torch.py [--model M] [--batch 32] [--iters 5] [--table PATH] [--root DIR]
     python3 profile_torch.py --kernels [--model M] [--lanes] [--layouts] [--warps] [--batch 32] [--root DIR]
+    python3 profile_torch.py --bn-relu [--model M] [--batch 32] [--root DIR]
     python3 profile_torch.py --emd [--table PATH] [--root DIR]
     python3 profile_torch.py --train [--model M] [--iters 5] [--table PATH] [--root DIR] [--remat]
 
@@ -59,6 +60,16 @@ another checkout with this package's interface (a commit unpacked with
 ``git archive``), so one call on one card can time both; a checkout
 whose interface differs is timed with its own ``profile_torch.py``.
 
+With ``--bn-relu`` it times the fused eval BatchNorm + ReLU
+(``pan::bn_relu``) at each distinct ``(rows, C)`` that the model's eval
+forward at ``--batch`` gives it (site 0 is the first SA level's first
+layer): its mean per call of back-to-back calls and, from the profiler's
+device rows, its device time per launch, its bytes bound (one read and
+one write of f32, over 3.35 TB/s) and the share of that bound it reaches;
+beside them the time per call and the device time of the four torch
+passes it replaces (the subtraction, product and sum, then
+``torch.relu``), whose result it must equal in every bit.
+
 With ``--emd`` it runs ``ops.auction_emd`` instead, at the reference
 call site of ``emd_loss`` (two (4, 4096, 3) clouds, eps 0.02, 1024
 iterations): the host time of the exact call and of the opt-in
@@ -89,6 +100,7 @@ CUDA device; imports nothing of JAX.
 """
 import argparse
 import importlib
+import itertools
 import os
 import statistics
 import subprocess
@@ -551,6 +563,52 @@ def profile_train(torch, card, dev, iters, table, model_type="patch_aug_net", ov
     return 0
 
 
+BN_RELU_BYTES_PER_ELEMENT = 8   # one f32 read, one written
+PEAK_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+
+
+def profile_bn_relu(torch, card, dev, batch, model_type):
+    """``pan::bn_relu`` at the (rows, C) of each eval BatchNorm -> ReLU site
+    of ``model_type``'s forward at ``batch``, beside the four passes it
+    replaces."""
+    from patchaugnet_tpu_torch import configs, ops, serving
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import core, seeded_init_
+
+    cfg_name = MODELS[model_type][0]
+    model = seeded_init_(get_model(model_type, getattr(configs, cfg_name)), torch.Generator().manual_seed(0))
+    sites, order, real = {}, itertools.count(), core.bn_relu
+
+    def spy(x, *vectors):
+        sites.setdefault((x.numel() // x.shape[-1], x.shape[-1]), []).append(next(order))
+        return real(x, *vectors)
+
+    core.bn_relu = spy
+    try:
+        serving.build_forward_fn(model, device=dev)(torch.rand(batch, N_POINTS, 3, device=dev))
+    finally:
+        core.bn_relu = real
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for (rows, c), where in sites.items():
+        x = torch.randn(rows, c, generator=gen, device=dev)
+        mean, bias = (torch.randn(c, generator=gen, device=dev) * 0.1 for _ in range(2))
+        mul = torch.rand(c, generator=gen, device=dev) + 0.5
+        fused = lambda: ops.bn_relu(x, mean, mul, bias)              # noqa: E731
+        passes = lambda: torch.relu((x - mean) * mul + bias)        # noqa: E731
+        same = torch.equal(fused().view(torch.int32), passes().view(torch.int32))
+        ms = statistics.median(time_ms(torch, fused, 50) for _ in range(7))
+        old_call = statistics.median(time_ms(torch, passes, 50) for _ in range(7))
+        dev_ms, per_call = device_ms(torch, fused, 20, "bn_relu_kernel")
+        old_ms, old_kernels = device_ms(torch, passes, 20)
+        bound_ms = rows * c * BN_RELU_BYTES_PER_ELEMENT / PEAK_BYTES_PER_S * 1e3
+        print(f"[{card}] pan::bn_relu {model_type} B={batch} sites {where} (rows, C)=({rows},{c}): {ms:.4f} ms "
+              f"per call, device {dev_ms:.4f} ms per launch ({per_call:g} launches per call recorded), bytes bound "
+              f"{bound_ms:.4f} ms, {bound_ms / dev_ms:.1%} of it; the four passes {old_call:.4f} ms per call, device "
+              f"{old_ms * old_kernels:.4f} ms in {old_kernels:g} kernels; bit-equal {same}", flush=True)
+        del x
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=32)
@@ -564,6 +622,8 @@ def main():
                         help="with --kernels: K1 at every layout, at B=32 and B=100")
     parser.add_argument("--warps", action="store_true",
                         help="with --kernels: the top-k kernel at every warps-per-row count")
+    parser.add_argument("--bn-relu", action="store_true",
+                        help="time the fused eval BatchNorm + ReLU at the model's sites instead")
     parser.add_argument("--train", action="store_true", help="profile the train step instead")
     parser.add_argument("--model", default="patch_aug_net", choices=sorted(MODELS),
                         help="the model whose forward, kernels or train step to profile")
@@ -596,6 +656,8 @@ def main():
         return profile_emd(torch, card, dev, args.table)
     if args.kernels:
         return profile_kernels(torch, card, dev, args.batch, args.lanes, args.layouts, args.warps, args.model)
+    if args.bn_relu:
+        return profile_bn_relu(torch, card, dev, args.batch, args.model)
     if args.train:
         return profile_train(torch, card, dev, args.iters, args.table, args.model, overrides)
     cfg_name, _, stages = MODELS[args.model]

@@ -666,3 +666,103 @@ def test_sharded_knn_over_two_ranks_on_one_card(device, rng):
     for idx, d2, ref_idx, ref_d2 in parallel.spawn(torch_parallel_worker.knn_on_one_card, 2, args=(xyz, q, 20),
                                                     platform="gpu", share_device=True):
         assert torch.equal(idx, ref_idx) and torch.equal(d2, ref_d2)
+
+
+norm_ops = importlib.import_module("patchaugnet_tpu_torch.ops.norm")
+
+# (rows, C) of every eval BatchNorm -> ReLU site at B=4 (PatchAugNet's, then
+# PPT-Net's that differ), the first SA level's and the first FP level's at B=100,
+# channel counts that are not a multiple of 4 (the scalar path), an unaligned row
+# count, and large tensors on both paths
+_BN_RELU_SHAPES = [(81920, 32), (81920, 64), (10240, 64), (10240, 256), (1280, 256), (1280, 512), (512, 256),
+                   (4096, 256), (16384, 256), (4096, 64), (20480, 64), (20480, 128), (1024, 128), (5120, 128),
+                   (5120, 256), (256, 256), (64, 512), (2048000, 32), (409600, 256),
+                   (1000, 3), (777, 1), (513, 30), (100, 1026), (12345, 32), (2000000, 30), (300000, 1020)]
+
+
+def _bn_relu_inputs(rng, rows, c, device, specials=True):
+    x = (rng.randn(rows, c) * 3).astype(np.float32)
+    if specials and x.size:
+        flat = x.reshape(-1)
+        flat[rng.randint(0, flat.size, 64)] = np.nan
+        flat[rng.randint(0, flat.size, 64)] = np.inf
+        flat[rng.randint(0, flat.size, 64)] = -np.inf
+        flat[rng.randint(0, flat.size, 64)] = 0.0
+    mean = (rng.randn(c) * 0.1).astype(np.float32)
+    mul = (rng.rand(c) + 0.5).astype(np.float32)
+    bias = (rng.randn(c) * 0.1).astype(np.float32)
+    if c > 2:
+        mul[1], mean[2] = 0.0, np.inf     # inf * 0 and inf - inf: NaNs made inside
+    return [torch.from_numpy(a).to(device) for a in (x, mean, mul, bias)]
+
+
+def _passes(x, mean, mul, bias):
+    """The four torch passes of an eval BatchNorm and ``torch.relu``."""
+    return torch.relu((x - mean) * mul + bias)
+
+
+@pytest.mark.parametrize("rows,c", _BN_RELU_SHAPES)
+def test_bn_relu_matches_the_four_passes(device, rng, rows, c):
+    """The kernel's result equals the four torch passes on the card in
+    every bit, NaN, infinities and signed zeros included, through the
+    float4 path and the scalar one."""
+    x, mean, mul, bias = _bn_relu_inputs(rng, rows, c, device)
+    before = norm_ops.launches
+    got = ops.bn_relu(x, mean, mul, bias)
+    assert norm_ops.launches == before + 1
+    assert got.shape == x.shape and got.is_contiguous()
+    assert torch.equal(got.view(torch.int32), _passes(x, mean, mul, bias).view(torch.int32))
+
+
+@pytest.mark.parametrize("c", [32, 3])
+def test_bn_relu_unaligned_input_and_no_rows(device, rng, c):
+    """An input that starts off a 16-byte boundary takes the scalar path
+    and gives the same bits; a tensor of zero rows launches nothing."""
+    x, mean, mul, bias = _bn_relu_inputs(rng, 301, c, device)
+    shifted = torch.empty(x.numel() + 1, device=device)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    got = ops.bn_relu(shifted, mean, mul, bias)
+    assert torch.equal(got.view(torch.int32), _passes(x, mean, mul, bias).view(torch.int32))
+    before = norm_ops.launches
+    empty = ops.bn_relu(x[:0], mean, mul, bias)
+    assert empty.shape == (0, c) and norm_ops.launches == before
+
+
+def test_bn_relu_rejects_what_the_kernel_does_not_take(device, rng):
+    x, mean, mul, bias = _bn_relu_inputs(rng, 64, 32, device, specials=False)
+    for bad in (x.t().contiguous().t(), x.double(), x.to(torch.bfloat16), x[:, :30].contiguous()):
+        with pytest.raises(ValueError, match="pan::bn_relu"):
+            ops.bn_relu(bad, mean, mul, bias)
+    for bad in (mul[:16], mul.cpu(), mul.double(), torch.stack([mul, mul], 1)[:, 0]):
+        with pytest.raises(ValueError, match="mul"):
+            ops.bn_relu(x, mean, bad, bias)
+
+
+@pytest.mark.parametrize("model_type, cfg_name, sites", [("patch_aug_net", "PATCH_AUG_NET", 16),
+                                                         ("pptnet", "PPTNET_ORIGIN", 25),
+                                                         ("pointnet_vlad", "POINTNET_VLAD", 4)])
+def test_eval_forward_fused_matches_unfused(device, rng, monkeypatch, model_type, cfg_name, sites):
+    """The full-width eval forward at B=4 on the card: one ``pan::bn_relu``
+    launch per BatchNorm -> ReLU site, and every output equal in every bit
+    to the forward with the fused path switched off."""
+    from patchaugnet_tpu_torch import configs, serving
+    from patchaugnet_tpu_torch.models import get_model
+    from patchaugnet_tpu_torch.nn import BatchNorm, seeded_init_
+
+    serving.resolve_device(device)
+    model = seeded_init_(get_model(model_type, getattr(configs, cfg_name)), torch.Generator().manual_seed(0))
+    model = model.to(device).eval()
+    clouds = torch.from_numpy(rng.rand(4, 4096, 3).astype(np.float32)).to(device)
+    before = norm_ops.launches
+    with torch.inference_mode():
+        fused = model(clouds)
+    assert norm_ops.launches == before + sites
+    monkeypatch.setattr(BatchNorm, "relu", lambda self, x: torch.relu(self(x)))
+    with torch.inference_mode():
+        unfused = model(clouds)
+    assert norm_ops.launches == before + sites
+    leaves = torch.utils._pytree.tree_leaves
+    for a, b in zip(leaves(fused), leaves(unfused), strict=True):
+        assert a is b is None or (a.dtype == b.dtype and torch.equal(a, b))
+    assert torch.isfinite(serving.global_desc(fused)).all()
